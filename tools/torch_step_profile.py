@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's flagship train step goes, on one GPU.
+
+    python3 tools/torch_step_profile.py [--steps 5] [--impl countmat]
+
+Builds the flagship batch and model exactly as chip_smoke.py does, takes
+3 warm-up steps, then profiles `--steps` train steps with torch.profiler
+(CPU and CUDA activities). Prints one JSON line: host ms per step (wall
+clock around synchronized steps), device busy ms per step (the union of
+the kernels' intervals on the GPU timeline), the device's idle share,
+kernel launches per step, the device time of the port's own CUDA
+kernels, and the kernels with the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _union_ms(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total / 1e3  # profiler times are in microseconds
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--impl", default="countmat",
+                    choices=["countmat", "countmat_pallas"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_step_profile: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import dataclasses
+
+    from chip_smoke import NUM_GRAPHS, flagship_config
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.molecules import synthetic_zinc
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEff
+    from escgnn_tpu_torch.ops import zemb
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        l1_graph_loss,
+        train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    graphs = featurize_many(synthetic_zinc(NUM_GRAPHS, seed=0), EscConfig(h=3))
+    spec = BatchSpec.uniform(graphs, NUM_GRAPHS, enc_layout="dedup")
+    batch = pad_and_batch(graphs, spec, device=dev)
+    if args.impl == "countmat_pallas":
+        batch = dataclasses.replace(batch, enc_countmat=None)
+    zemb.set_impl(args.impl)
+    model = NestedGINEff(flagship_config(), device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    opt = adam_with_plateau(model.parameters(), 5e-4)
+    for _ in range(3):
+        train_step(model, opt, batch, l1_graph_loss)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            train_step(model, opt, batch, l1_graph_loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    zemb.set_impl("countmat")
+
+    # device-side events, without the user annotations the profiler
+    # mirrors onto the GPU timeline (e.g. "Optimizer.step#Adam.step")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.name]
+    busy = _union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name: dict = {}
+    for e in kernels:
+        by_name.setdefault(e.name, [0.0, 0])
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    busy_ms = busy / args.steps
+    print(json.dumps({
+        "card": smi, "impl": args.impl, "steps": args.steps,
+        "host_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "kernel_launches_per_step": len(kernels) / args.steps,
+        "port_kernels_ms_per_step": {
+            n[:60]: v[0] / args.steps for n, v in by_name.items()
+            if any(k in n for k in ("chunk_pass", "offsets_pass",
+                                    "row_pass", "countmat_kernel"))},
+        "top_kernels_ms_per_step": [
+            {"name": n[:90], "ms": v[0] / args.steps,
+             "calls": v[1] / args.steps} for n, v in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
