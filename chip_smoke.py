@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `escgnn_tpu_torch/csrc/`, holds each one
-against its plain PyTorch version on the card, then drives the flagship
-ESC-GNN train step (128 synthetic ZINC molecules, uniform + dedup batch,
-NestedGINEff hidden 256 x 5 layers with bf16 conv stacks, L1 loss, Adam
-5e-4) for 10 steps and one eval step, and one step with the count-matrix
-kernel path. Every phase prints one line; any failed check raises, so the
-script exits non-zero and prints no result. The last two lines are the
-kernel table and the result, both JSON.
+against its plain PyTorch version on the card, then drives two main
+paths:
+
+  * the flagship ESC-GNN train step (128 synthetic ZINC molecules,
+    uniform + dedup batch, NestedGINEff hidden 256 x 5 layers with bf16
+    conv stacks, L1 loss, Adam 5e-4) for 10 steps and one eval step, and
+    one step with the count-matrix kernel path;
+  * the PPGN_eff counting train step (128 counting graphs, width batch,
+    PPGN emb 128 x 3 regular blocks with bf16 block stacks, node-level L1
+    loss, Adam 5e-4) for 10 steps and one eval step through the row-gather
+    z kernel and the pooling kernel, and one step with the default impls.
+
+Every phase prints one line; any failed check raises, so the script exits
+non-zero and prints no result. The last two lines are the kernel table
+and the result, both JSON.
 
 Needs a CUDA card and nvcc; exits 1 without a card. Imports no JAX.
 """
@@ -37,6 +45,9 @@ PEAK_F32_FLOPS = 67e12
 NUM_GRAPHS = 128
 TRAIN_STEPS = 10
 LR = 5e-4
+# the PPGN_eff bench line (bench.py:484-501): emb 128, 3 regular blocks
+PPGN_EMB = 128
+PPGN_BLOCKS = 3
 
 
 def _log(phase: str, **fields):
@@ -237,6 +248,272 @@ def check_small_reference(dev):
          max_abs_out_err=worst, ok=True)
 
 
+def counting_batch(dev):
+    """The PPGN_eff bench batch (bench.py:267-282,484-501), built by the
+    port: 128 counting graphs, y cut to column 0, featurized with
+    EscConfig(h=2, use_rd=True, self_loop=True), one width batch."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.counting import (
+        CountingDatasetConfig,
+        generate_counting_graphs,
+    )
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+
+    t0 = time.perf_counter()
+    splits = generate_counting_graphs(
+        CountingDatasetConfig(num_graphs=NUM_GRAPHS, seed=0))
+    graphs = [g for s in splits.values() for g in s][:NUM_GRAPHS]
+    for g in graphs:
+        g.y = g.y[:, :1]
+    graphs = featurize_many(graphs, EscConfig(h=2, use_rd=True,
+                                              self_loop=True))
+    spec = BatchSpec.from_graphs(graphs, NUM_GRAPHS)
+    batch = pad_and_batch(graphs, spec, device=dev)
+    real_edges = sum(g.num_edges for g in graphs)
+    nnz = int((batch.enc_cnt != 0).sum().item())
+    _log("ppgn_batch", seconds=round(time.perf_counter() - t0, 3),
+         N=batch.num_nodes, E=batch.num_edges, P=spec.enc_width,
+         max_nodes=spec.max_nodes_per_graph, real_edges=real_edges,
+         real_nodes=sum(g.num_nodes for g in graphs), enc_nnz=nnz)
+    return batch, spec, real_edges
+
+
+def check_k3(batch, dev):
+    """K3 against its plain version at the PPGN_eff width shapes, and on a
+    ragged case: E not a multiple of 128, H not a multiple of 32 and over
+    one 128-column tile, P over one 32-entry chunk, duplicate ids in a
+    row, ids outside [0, Z)."""
+    import torch.nn.functional as F
+
+    from escgnn_tpu_torch.ops import zemb_gather
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = batch.enc_idx.to(torch.int32).contiguous()
+    cnt = batch.enc_cnt.to(torch.float32).contiguous()
+    E, P = idx.shape
+    Z, H = 1800, PPGN_EMB
+    table = torch.randn(Z, H, device=dev, generator=gen)
+    got = zemb_gather.zemb_gather(table, idx, cnt)
+    want = zemb_gather.zemb_gather_plain(table, idx, cnt)
+    torch.cuda.synchronize()
+    # f32 products of unit normals and counts (row sums up to a few
+    # hundred), summed over up to 56 entries in another order
+    tol = dict(rtol=1e-5, atol=1e-4)
+    err = _check_close("K3", got, want, **tol)
+
+    Er, Pr, Hr = 1000, 37, 200
+    ir = torch.randint(0, Z, (Er, Pr), device=dev, generator=gen,
+                       dtype=torch.int32)
+    cr = torch.randint(0, 6, (Er, Pr), device=dev, generator=gen).float()
+    ir[::7, :5] = 17      # duplicates
+    ir[3, 0], cr[3, 0] = Z, 4.0    # outside the table: contributes 0
+    ir[5, 1], cr[5, 1] = -2, 3.0
+    tr = torch.randn(Z, Hr, device=dev, generator=gen)
+    _check_close("K3 ragged", zemb_gather.zemb_gather(tr, ir, cr),
+                 zemb_gather.zemb_gather_plain(tr, ir, cr), **tol)
+
+    ms = _cuda_ms(lambda: zemb_gather.zemb_gather(table, idx, cnt))
+    plain_ms = _cuda_ms(lambda: zemb_gather.zemb_gather_plain(table, idx, cnt))
+    # yardstick: the one PyTorch call computing the same z (never called
+    # by the port)
+    idx64 = idx.long()
+    library_ms = _cuda_ms(lambda: F.embedding_bag(
+        idx64, table, per_sample_weights=cnt, mode="sum"))
+    nnz = int((cnt != 0).sum().item())
+    nbytes = E * P * 4 * 2 + Z * H * 4 + E * H * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz * H)
+    _log("k3", shapes=f"E={E},P={P},Z={Z},H={H}", nnz=nnz, max_abs_err=err,
+         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="F.embedding_bag(mode=sum,per_sample_weights)",
+         bound_ms=bound_ms, bound_by=bound_by, ok=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_k4(dev, G, N):
+    """K4 against its plain version at the PPGN_eff grid (f32 and bf16
+    inputs) and on ragged grids (G, N and C off any tiling)."""
+    from escgnn_tpu_torch.ops import ppgn_pool
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    C = PPGN_EMB
+    # f32 sums of 2N unit normals in another order
+    tol = dict(rtol=1e-6, atol=1e-5)
+    x32 = torch.randn(G, N, N, C, device=dev, generator=gen)
+    x16 = x32.to(torch.bfloat16)
+    err = 0.0
+    for name, x in (("f32", x32), ("bf16", x16)):
+        got = ppgn_pool.diag_row_col_pool(x)
+        torch.cuda.synchronize()
+        err = max(err, _check_close(f"K4 {name}", got,
+                                    ppgn_pool.diag_row_col_pool_plain(x),
+                                    **tol))
+    for shape in ((3, 7, 7, 20), (5, 30, 30, 200)):
+        for dt in (torch.float32, torch.bfloat16):
+            xr = torch.randn(*shape, device=dev, generator=gen).to(dt)
+            _check_close(f"K4 ragged {shape} {dt}",
+                         ppgn_pool.diag_row_col_pool(xr),
+                         ppgn_pool.diag_row_col_pool_plain(xr), **tol)
+
+    # timed on the main path's input type (bf16 blocks)
+    ms = _cuda_ms(lambda: ppgn_pool.diag_row_col_pool(x16))
+    plain_ms = _cuda_ms(lambda: ppgn_pool.diag_row_col_pool_plain(x16))
+    nbytes = G * N * N * C * 2 + G * N * 2 * C * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * G * N * N * C)
+    _log("k4", shapes=f"G={G},N={N},C={C}", dtype="bf16", max_abs_err=err,
+         ms=ms, plain_ms=plain_ms, library_ms=None,
+         library="none: no single PyTorch call computes [diag|row+col-2diag]",
+         bound_ms=bound_ms, bound_by=bound_by, ok=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ppgn_config(max_nodes: int, pool_impl: str, compute_dtype="bfloat16",
+                emb_dim=PPGN_EMB, num_rb_layers=PPGN_BLOCKS):
+    from escgnn_tpu_torch.models.ppgn import PPGNConfig
+
+    return PPGNConfig(emb_dim=emb_dim, num_rb_layers=num_rb_layers,
+                      max_nodes=max_nodes, node_level=True, use_esc=True,
+                      compute_dtype=compute_dtype, pool_impl=pool_impl)
+
+
+def check_small_ppgn(dev):
+    """PPGN_eff on the card (K3 and K4) against the port on the CPU (plain
+    versions) on a small f32 width batch: train-mode outputs and every
+    gradient."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.counting import (
+        CountingDatasetConfig,
+        generate_counting_graphs,
+    )
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.models.ppgn import PPGN
+    from escgnn_tpu_torch.ops import zemb
+    from escgnn_tpu_torch.train.loop import l1_node_loss
+
+    splits = generate_counting_graphs(CountingDatasetConfig(num_graphs=8,
+                                                            seed=5))
+    graphs = featurize_many(splits["train"][:6],
+                            EscConfig(h=2, use_rd=True, self_loop=True))
+    for g in graphs:
+        g.y = g.y[:, :1]
+    spec = BatchSpec.from_graphs(graphs, 6)
+    cfg = ppgn_config(spec.max_nodes_per_graph, "pallas", "float32",
+                      emb_dim=32, num_rb_layers=2)
+    cpu_model = PPGN(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(6))
+    zemb.set_impl("pallas")
+    try:
+        results = []
+        for device in ("cpu", dev):
+            b = pad_and_batch(graphs, spec, device=device)
+            m = copy.deepcopy(cpu_model).to(device).train()
+            out = m(b)
+            l1_node_loss(out, b).backward()
+            grads = {k: p.grad.cpu() for k, p in m.named_parameters()}
+            results.append((out.detach().cpu(), grads))
+    finally:
+        zemb.set_impl("countmat")
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results
+    # f32 on both sides, sums in another order (rtol/atol 1e-4); the
+    # gradients at atol 1e-4 of the largest one (the biases feeding a
+    # BatchNorm have zero gradients, f32 noise on both sides)
+    err = _check_close("small ppgn out", o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    for k in g_cpu:
+        _check_close(f"small ppgn grad {k}", g_gpu[k], g_cpu[k],
+                     rtol=1e-4, atol=1e-4 * gmax)
+    _log("small_ppgn", graphs=6, emb=32, blocks=2, max_abs_out_err=err,
+         ok=True)
+
+
+def run_ppgn(batch, spec, real_edges, dev):
+    """The PPGN_eff main path through K3 and K4: 10 train steps and one
+    eval step, then one default-impl step from the same initial state.
+    Returns the kernels' launches on the main path."""
+    from escgnn_tpu_torch.models.ppgn import PPGN
+    from escgnn_tpu_torch.ops import ppgn_pool, zemb, zemb_gather
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        eval_step,
+        l1_node_loss,
+        train_step,
+    )
+
+    N = spec.max_nodes_per_graph
+    model = PPGN(ppgn_config(N, "pallas"), device=dev,
+                 generator=torch.Generator().manual_seed(0))
+    init_state = copy.deepcopy(model.state_dict())
+    opt = adam_with_plateau(model.parameters(), LR)
+    zemb.set_impl("pallas")
+    try:
+        zemb_gather.launches = 0
+        ppgn_pool.launches = 0
+        losses, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(train_step(model, opt, batch, l1_node_loss))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"k3": zemb_gather.launches, "k4": ppgn_pool.launches}
+        zemb_gather.launches = 0
+        ppgn_pool.launches = 0
+        err_sum, count = eval_step(model, batch, node_level=True)
+        torch.cuda.synchronize()
+        eval_launches = {"k3": zemb_gather.launches, "k4": ppgn_pool.launches}
+        with torch.no_grad():
+            out = model.eval()(batch)
+        torch.cuda.synchronize()
+    finally:
+        zemb.set_impl("countmat")
+    n_rows = batch.num_nodes
+    if tuple(out.shape) != (n_rows, 1) or not torch.isfinite(out).all():
+        raise AssertionError(f"PPGN eval output {tuple(out.shape)} is not a "
+                             f"finite ({n_rows}, 1) tensor")
+    losses = [float(v) for v in losses]
+    mae = float(err_sum) / float(count)
+    if not all(math.isfinite(v) for v in losses) or not math.isfinite(mae):
+        raise AssertionError(f"PPGN: non-finite loss or MAE: {losses} {mae}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"PPGN loss did not fall: {losses}")
+    if launches != {"k3": TRAIN_STEPS, "k4": TRAIN_STEPS}:
+        raise AssertionError(f"PPGN: {launches} launches in {TRAIN_STEPS} "
+                             f"steps, want one of each per step")
+    if eval_launches != {"k3": 1, "k4": 1}:
+        raise AssertionError(f"PPGN eval step: {eval_launches} launches")
+    ms_step = statistics.median(step_ms[1:])
+    _log("ppgn", steps=TRAIN_STEPS, emb=PPGN_EMB, blocks=PPGN_BLOCKS,
+         graphs=NUM_GRAPHS, E=batch.num_edges, P=spec.enc_width, N=N,
+         first_loss=losses[0], last_loss=losses[-1], eval_mae=mae,
+         first_step_ms=step_ms[0], median_ms_per_step=ms_step,
+         real_edges_per_s=real_edges / (ms_step / 1e3),
+         k3_launches=launches["k3"], k4_launches=launches["k4"],
+         eval_k3_launches=eval_launches["k3"],
+         eval_k4_launches=eval_launches["k4"], ok=True)
+
+    # the default impls ("countmat", pool "xla") from the same state: the
+    # kernel path's first loss was taken from that state too
+    m_def = PPGN(ppgn_config(N, "xla"), device=dev)
+    m_def.load_state_dict(init_state)
+    zemb_gather.launches = 0
+    ppgn_pool.launches = 0
+    t0 = time.perf_counter()
+    loss_def = float(train_step(m_def, adam_with_plateau(m_def.parameters(), LR),
+                                batch, l1_node_loss))
+    torch.cuda.synchronize()
+    def_ms = (time.perf_counter() - t0) * 1e3
+    if zemb_gather.launches or ppgn_pool.launches:
+        raise AssertionError("the default impls launched K3 or K4")
+    # the bf16 blocks can round an f32 difference of the z reduce (summed
+    # in another order) the other way
+    if not math.isclose(loss_def, losses[0], rel_tol=1e-3):
+        raise AssertionError(f"PPGN default-impl loss {loss_def} != kernel "
+                             f"path {losses[0]}")
+    _log("ppgn_default", loss_default=loss_def, loss_kernels=losses[0],
+         step_ms=def_ms, ok=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -369,6 +646,13 @@ def main() -> int:
          step_ms=k2_step_ms, k1_launches=k2_launches["k1"],
          k2_launches=k2_launches["k2"], ok=True)
 
+    # 8. the PPGN_eff counting path: K3 and K4, then their main path
+    ppgn_batch, ppgn_spec, ppgn_edges = counting_batch(dev)
+    k3 = check_k3(ppgn_batch, dev)
+    k4 = check_k4(dev, NUM_GRAPHS, ppgn_spec.max_nodes_per_graph)
+    check_small_ppgn(dev)
+    ppgn_launches = run_ppgn(ppgn_batch, ppgn_spec, ppgn_edges, dev)
+
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",
              source="escgnn_tpu_torch/csrc/expand_segsum.cu",
@@ -378,6 +662,14 @@ def main() -> int:
              source="escgnn_tpu_torch/csrc/zemb_countmat.cu",
              replaces="escgnn_tpu/ops/zemb_pallas.py:114",
              launches=k2_launches["k2"], **k2),
+        dict(name="zemb_gather", route="cuda",
+             source="escgnn_tpu_torch/csrc/zemb_gather.cu",
+             replaces="escgnn_tpu/ops/zemb_pallas.py:62",
+             launches=ppgn_launches["k3"], **k3),
+        dict(name="diag_row_col_pool", route="cuda",
+             source="escgnn_tpu_torch/csrc/ppgn_pool.cu",
+             replaces="escgnn_tpu/ops/ppgn_pool.py:57",
+             launches=ppgn_launches["k4"], **k4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

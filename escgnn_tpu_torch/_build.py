@@ -40,6 +40,13 @@ SIGNATURES = {
         "zemb_countmat_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
         "zemb_countmat_smem_bytes": (_I, [_I]),
     },
+    "zemb_gather": {
+        "zemb_gather_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    },
+    "ppgn_pool": {
+        "ppgn_pool_f32": (_I, [_P, _I, _I, _I, _P, _P]),
+        "ppgn_pool_bf16": (_I, [_P, _I, _I, _I, _P, _P]),
+    },
 }
 
 _LOCK = threading.Lock()

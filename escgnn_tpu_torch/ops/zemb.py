@@ -1,5 +1,5 @@
 """Structural-embedding reduce: the z_emb hot op (counterpart of
-`escgnn_tpu/ops/zemb.py`, dedup count-matrix path).
+`escgnn_tpu/ops/zemb.py`, dedup and width layouts).
 
 Per edge e:  z_emb[e] = sum_{k in nnz(e)} count_k * table[bucket_k].
 
@@ -8,29 +8,35 @@ rows and is expanded to the E edges with one gather (`expand_rows`), whose
 backward is the sorted-segment-sum kernel (K1) on CUDA tensors. With
 bucket compaction the (Zc, H) active table is gathered first; with the
 host count matrix `enc_countmat` the reduce is one matmul C @ table.
-Without it, `zemb_weighted_gather` builds C: in PyTorch (impl
-"countmat", the default) or with the fused count-matrix kernel (K2,
-impl "countmat_pallas", the JAX package's name for it).
+On the width layout the reduce runs over the E edge rows directly.
+
+Without a host count matrix, `zemb_weighted_gather` reduces by impl:
+  * "countmat" (the default): C built in PyTorch, then C @ table;
+  * "countmat_pallas": the fused count-matrix kernel (K2), which also
+    returns C;
+  * "gather": the plain gather-reduce;
+  * "pallas": the row-gather kernel (K3).
+The names are the JAX package's. "gather" and "pallas" share one
+backward, dT = C^T @ dZ in f32 with C built in PyTorch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from escgnn_tpu_torch.ops import expand_cuda, zemb_cuda
+from escgnn_tpu_torch.ops import expand_cuda, zemb_cuda, zemb_gather
 from escgnn_tpu_torch.ops.embed import embed_take
 from escgnn_tpu_torch.ops.zemb_cuda import count_matrix as _count_matrix
 
+IMPLS = ("countmat", "countmat_pallas", "gather", "pallas")
 _IMPL = "countmat"
 
 
 def set_impl(impl: str):
     global _IMPL
-    if impl not in ("countmat", "countmat_pallas"):
+    if impl not in IMPLS:
         raise NotImplementedError(
-            f"zemb impl {impl!r}: only 'countmat' and 'countmat_pallas' "
-            "are ported"
-        )
+            f"zemb impl {impl!r}: the ported impls are {IMPLS}")
     _IMPL = impl
 
 
@@ -53,6 +59,26 @@ class _ZembCountmat(torch.autograd.Function):
         return C.t() @ dZ.to(torch.float32), None, None
 
 
+class _ZembGather(torch.autograd.Function):
+    """Counterpart of `_zemb_core`: forward K3 (impl "pallas") or the
+    plain gather-reduce (impl "gather"); backward dT = C^T @ dZ in f32,
+    C built from the ids and counts (no gradient for either)."""
+
+    @staticmethod
+    def forward(ctx, table, enc_idx, enc_cnt, kernel: bool):
+        ctx.save_for_backward(enc_idx, enc_cnt)
+        ctx.num_buckets = table.shape[0]
+        if kernel:
+            return zemb_gather.zemb_gather(table, enc_idx, enc_cnt)
+        return zemb_gather.zemb_gather_plain(table, enc_idx, enc_cnt)
+
+    @staticmethod
+    def backward(ctx, dZ):
+        enc_idx, enc_cnt = ctx.saved_tensors
+        C = _count_matrix(enc_idx, enc_cnt, ctx.num_buckets)
+        return C.t() @ dZ.to(torch.float32), None, None, None
+
+
 def zemb_weighted_gather(table, enc_idx, enc_cnt):
     """Per-row weighted sum of embedding-table rows -> (R, H) f32.
     Accepts the int16 wire format from the batcher."""
@@ -60,7 +86,10 @@ def zemb_weighted_gather(table, enc_idx, enc_cnt):
     enc_cnt = enc_cnt.to(torch.float32).contiguous()
     if _IMPL == "countmat":
         return _countmat_reduce(table, enc_idx, enc_cnt)
-    return _ZembCountmat.apply(table.contiguous(), enc_idx, enc_cnt)
+    if _IMPL == "countmat_pallas":
+        return _ZembCountmat.apply(table.contiguous(), enc_idx, enc_cnt)
+    return _ZembGather.apply(table.contiguous(), enc_idx, enc_cnt,
+                             _IMPL == "pallas")
 
 
 def zemb_unique_rows(table, batch):

@@ -25,12 +25,16 @@ _MAX_SMEM_BYTES = 232448
 
 
 def count_matrix(enc_idx, enc_cnt, num_buckets: int):
-    """Dense (R, Z) f32 count matrix from (R, P) ids and counts: a
-    broadcast compare + sum over P (ids outside [0, Z) contribute 0)."""
-    zr = torch.arange(num_buckets, dtype=enc_idx.dtype, device=enc_idx.device)
-    onehot = enc_idx[:, :, None] == zr[None, None, :]
-    cnt = enc_cnt.to(torch.float32)[:, :, None]
-    return torch.where(onehot, cnt, torch.zeros((), device=cnt.device)).sum(1)
+    """Dense (R, Z) f32 count matrix from (R, P) ids and counts: one
+    scatter-add of the counts along Z, so nothing of size (R, P, Z) is
+    built (ids outside [0, Z) contribute 0). The counts are small
+    integers, so the f32 sums are exact in any order."""
+    idx = enc_idx.long()
+    ok = (idx >= 0) & (idx < num_buckets)
+    cnt = torch.where(ok, enc_cnt.to(torch.float32), 0.0)
+    C = torch.zeros(idx.shape[0], num_buckets, dtype=torch.float32,
+                    device=idx.device)
+    return C.scatter_add_(1, torch.where(ok, idx, 0), cnt)
 
 
 def zemb_countmat_plain(table, enc_idx, enc_cnt):

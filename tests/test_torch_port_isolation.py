@@ -74,6 +74,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     assert np.asarray(batch.x).shape[0] == spec.num_nodes
 
 
+def test_slice_modules_are_walked():
+    """The import walk reaches the PPGN slice's modules (and still finds
+    no JAX)."""
+    r = _run([sys.executable, "-c", _IMPORT_ALL + "print(' '.join(names))"],
+             cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    names = r.stdout.split()
+    for mod in ("data.counting", "data.graphlets", "models.ppgn",
+                "ops.ppgn_pool", "ops.zemb_gather"):
+        assert f"escgnn_tpu_torch.{mod}" in names, mod
+
+
+def test_ppgn_defaults_to_cuda_and_raises_without_it(no_card):
+    from escgnn_tpu_torch.models.ppgn import PPGN, PPGNConfig
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        PPGN(PPGNConfig(emb_dim=8, num_rb_layers=1))
+    assert isinstance(PPGN(PPGNConfig(emb_dim=8, num_rb_layers=1),
+                           device="cpu"), torch.nn.Module)
+
+
 def test_chip_smoke_fails_without_a_card(no_card, tmp_path):
     """chip_smoke.py exits non-zero and prints no result without a card,
     from the checkout and alone in an empty directory."""

@@ -285,5 +285,5 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         zemb_cuda.zemb_countmat(meta, ids.reshape(2, 2), meta[:2, :2])
     with pytest.raises(NotImplementedError):
-        zemb.set_impl("gather")
+        zemb.set_impl("flat")
     assert zemb._IMPL == "countmat"

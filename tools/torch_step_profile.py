@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's flagship train step goes, on one GPU.
+"""Where the time of the PyTorch port's train steps goes, on one GPU.
 
-    python3 tools/torch_step_profile.py [--steps 5] [--impl countmat]
+    python3 tools/torch_step_profile.py [--model flagship] [--steps 5] [--impl countmat]
+    python3 tools/torch_step_profile.py --model ppgn --impl pallas --pool pallas
 
-Builds the flagship batch and model exactly as chip_smoke.py does, takes
+Builds the batch and model of the flagship (NestedGINEff) or of the
+PPGN_eff counting path exactly as chip_smoke.py does, takes
 3 warm-up steps, then profiles `--steps` train steps with torch.profiler
 (CPU and CUDA activities). Prints one JSON line: host ms per step (wall
 clock around synchronized steps), device busy ms per step (the union of
@@ -39,8 +41,13 @@ def _union_ms(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", default="flagship",
+                    choices=["flagship", "ppgn"])
     ap.add_argument("--impl", default="countmat",
-                    choices=["countmat", "countmat_pallas"])
+                    choices=["countmat", "countmat_pallas", "gather",
+                             "pallas"])
+    ap.add_argument("--pool", default="xla", choices=["xla", "pallas"],
+                    help="PPGN node pooling (ppgn only)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA card", file=sys.stderr)
@@ -48,15 +55,22 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import dataclasses
 
-    from chip_smoke import NUM_GRAPHS, flagship_config
+    from chip_smoke import (
+        NUM_GRAPHS,
+        counting_batch,
+        flagship_config,
+        ppgn_config,
+    )
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
     from escgnn_tpu_torch.data.molecules import synthetic_zinc
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
     from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEff
+    from escgnn_tpu_torch.models.ppgn import PPGN
     from escgnn_tpu_torch.ops import zemb
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
         l1_graph_loss,
+        l1_node_loss,
         train_step,
     )
 
@@ -67,17 +81,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    graphs = featurize_many(synthetic_zinc(NUM_GRAPHS, seed=0), EscConfig(h=3))
-    spec = BatchSpec.uniform(graphs, NUM_GRAPHS, enc_layout="dedup")
-    batch = pad_and_batch(graphs, spec, device=dev)
-    if args.impl == "countmat_pallas":
-        batch = dataclasses.replace(batch, enc_countmat=None)
+    gen = torch.Generator().manual_seed(0)
+    if args.model == "ppgn":
+        batch, spec, _ = counting_batch(dev)
+        model = PPGN(ppgn_config(spec.max_nodes_per_graph, args.pool),
+                     device=dev, generator=gen)
+        loss_fn = l1_node_loss
+    else:
+        graphs = featurize_many(synthetic_zinc(NUM_GRAPHS, seed=0),
+                                EscConfig(h=3))
+        spec = BatchSpec.uniform(graphs, NUM_GRAPHS, enc_layout="dedup")
+        batch = pad_and_batch(graphs, spec, device=dev)
+        if args.impl != "countmat":
+            batch = dataclasses.replace(batch, enc_countmat=None)
+        model = NestedGINEff(flagship_config(), device=dev, generator=gen)
+        loss_fn = l1_graph_loss
     zemb.set_impl(args.impl)
-    model = NestedGINEff(flagship_config(), device=dev,
-                         generator=torch.Generator().manual_seed(0))
     opt = adam_with_plateau(model.parameters(), 5e-4)
     for _ in range(3):
-        train_step(model, opt, batch, l1_graph_loss)
+        train_step(model, opt, batch, loss_fn)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -85,7 +107,7 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            train_step(model, opt, batch, l1_graph_loss)
+            train_step(model, opt, batch, loss_fn)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     zemb.set_impl("countmat")
@@ -105,7 +127,9 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy / args.steps
     print(json.dumps({
-        "card": smi, "impl": args.impl, "steps": args.steps,
+        "card": smi, "model": args.model, "impl": args.impl,
+        "pool": args.pool if args.model == "ppgn" else None,
+        "steps": args.steps,
         "host_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -113,7 +137,8 @@ def main() -> int:
         "port_kernels_ms_per_step": {
             n[:60]: v[0] / args.steps for n, v in by_name.items()
             if any(k in n for k in ("chunk_pass", "offsets_pass",
-                                    "row_pass", "countmat_kernel"))},
+                                    "row_pass", "countmat_kernel",
+                                    "zemb_gather_kernel", "pool_kernel"))},
         "top_kernels_ms_per_step": [
             {"name": n[:90], "ms": v[0] / args.steps,
              "calls": v[1] / args.steps} for n, v in top],
