@@ -116,13 +116,16 @@ def check_k1(batch, dev):
     perm, rows_sorted = batch.enc_edge_perm, batch.enc_row_sorted
     E, R, H = perm.shape[0], batch.enc_idx.shape[0], 256
     dZ = torch.randn(E, H, device=dev, generator=gen)
-    # f32 sums of up to a few hundred terms, taken in another order by the
-    # plain version's index_add_
+    # f32 sums of up to a few hundred terms against the same sum in f64:
+    # the plain version's f32 index_add_ adds in an order that changes from
+    # run to run, and two f32 sums can then differ by more than K1's own
+    # rounding
     tol = dict(rtol=1e-5, atol=1e-4)
     got = expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R)
-    want = expand_cuda.sorted_segment_sum_plain(dZ, perm, rows_sorted, R)
+    want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
+        0, rows_sorted.long(), dZ.double().index_select(0, perm.long()))
     torch.cuda.synchronize()
-    err = _check_close("K1 f32", got, want, **tol)
+    err = _check_close("K1 f32", got, want.float(), **tol)
     again = expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R)
     if not torch.equal(got, again):
         raise AssertionError("K1 is not deterministic from run to run")
@@ -161,29 +164,110 @@ def check_k1(batch, dev):
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _plan_fields(plan):
+    return dict(slice_cols=plan.slice_cols, slices=plan.slices,
+                grid=plan.grid, smem_bytes_per_block=plan.smem_bytes,
+                table_rows_from="smem" if plan.resident else "l1")
+
+
+def _ragged_cases(gen, dev):
+    """(name, table, ids, counts) cases for K2 and K3: a 256-column slice
+    with H off a multiple of 32, a 128-column slice with H off a multiple
+    of 4, the tallest table a 128-column slice holds in shared memory and a
+    taller one read through L1; ids with duplicates in a row and outside
+    [0, Z), E not a multiple of 128, P over one 32-entry chunk."""
+    from escgnn_tpu_torch.ops import smem_plan
+
+    cases = []
+    for Z, H in ((100, 200), (77, 41), (smem_plan.MAX_RESIDENT_ROWS, 96),
+                 (2500, 200)):
+        ids = torch.randint(0, Z, (1000, 37), device=dev, generator=gen,
+                            dtype=torch.int32)
+        cnt = torch.randint(0, 6, (1000, 37), device=dev, generator=gen).float()
+        ids[::7, :5] = Z - 1            # duplicates
+        ids[3, 0], cnt[3, 0] = Z, 4.0   # outside the table: contributes 0
+        ids[5, 1], cnt[5, 1] = -2, 3.0
+        table = torch.randn(Z, H, device=dev, generator=gen)
+        where = "smem" if smem_plan.smem_plan(Z, H).resident else "l1"
+        cases.append((f"{Z}x{H}({where})", table, ids, cnt))
+    return cases
+
+
 def check_k2(batch, dev):
-    """K2 against its plain version at the flagship unique-row shapes."""
-    from escgnn_tpu_torch.ops import zemb_cuda
+    """K2 against its plain version at the flagship unique-row shapes and
+    on ragged cases (Zc off a multiple of 32, H off the slice width,
+    duplicate and out-of-range ids, resident and read through L1:
+    `_ragged_cases`): C equal to the plain build, z close, two calls
+    equal. A plan that does not match the shapes (by the C launcher), ids
+    that are not int32 and a table above 2**31 - 1 floats are refused."""
+    from escgnn_tpu_torch import _build
+    from escgnn_tpu_torch.ops import smem_plan, zemb_cuda, zemb_gather
 
     gen = torch.Generator(device=dev).manual_seed(2)
     idx = batch.enc_idx.to(torch.int32).contiguous()
     cnt = batch.enc_cnt.to(torch.float32).contiguous()
     R, P = idx.shape
     Zc, H = batch.enc_bucket_ids.shape[0], 256
+    sms = smem_plan.sm_count(dev)
     table = torch.randn(Zc, H, device=dev, generator=gen)
-    z, C = zemb_cuda.zemb_countmat(table, idx, cnt)
-    z_ref, C_ref = zemb_cuda.zemb_countmat_plain(table, idx, cnt)
-    torch.cuda.synchronize()
-    if not torch.equal(C, C_ref):
-        raise AssertionError("K2: count matrix differs from the plain build")
-    # f32 products summed over up to 128 buckets in another order
-    err = _check_close("K2 z", z, z_ref, rtol=1e-5, atol=1e-4)
-    try:
-        zemb_cuda.zemb_countmat(torch.zeros(1000, H, device=dev), idx, cnt)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("K2 accepted a count tile above shared memory")
+    # f32 products summed over up to P entries in another order
+    tol = dict(rtol=1e-5, atol=1e-4)
+
+    def check(name, t, i, c):
+        z, C = zemb_cuda.zemb_countmat(t, i, c)
+        z_ref, C_ref = zemb_cuda.zemb_countmat_plain(t, i, c)
+        torch.cuda.synchronize()
+        if not torch.equal(C, C_ref):
+            raise AssertionError(f"{name}: count matrix differs from the "
+                                 f"plain build")
+        err = _check_close(f"{name} z", z, z_ref, **tol)
+        z2, C2 = zemb_cuda.zemb_countmat(t, i, c)
+        if not (torch.equal(z, z2) and torch.equal(C, C2)):
+            raise AssertionError(f"{name}: not deterministic from run to run")
+        return z, C_ref, err
+
+    z, C_ref, err = check("K2", table, idx, cnt)
+    # the same walk as K3: the z reduce is the same f32 sum, bit for bit
+    if not torch.equal(z, zemb_gather.zemb_gather(table, idx, cnt)):
+        raise AssertionError("K2's z differs from K3's on the same inputs")
+
+    ragged = []
+    for name, tr, ir, cr in _ragged_cases(gen, dev):
+        check(f"K2 ragged {name}", tr, ir, cr)
+        ragged.append(name)
+    plan = smem_plan.smem_plan(Zc, H, sms)
+    z_out, C_out = torch.empty_like(z), torch.empty_like(C_ref)
+
+    def wrong_plan():
+        # the launcher itself, with 4 bytes more table than the shapes need
+        rc = _build.load("zemb_countmat").zemb_countmat_f32(
+            table.data_ptr(), idx.data_ptr(), cnt.data_ptr(), R, P, Zc, H,
+            plan.slice_cols, plan.blocks_per_slice, plan.table_bytes + 4,
+            z_out.data_ptr(), C_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "zemb_countmat")
+
+    # refused, each with its own reason: a plan that does not match the
+    # shapes, int64 ids, and a table above the kernels' 32-bit row offsets
+    # (a broadcast view of one row: nothing of its size is allocated)
+    refusals = {
+        # cudaErrorInvalidValue
+        "wrong_plan": (wrong_plan, "CUDA error 1 at launch"),
+        "int64_ids": (lambda: zemb_cuda.zemb_countmat(table, idx.long(), cnt),
+                      "int32"),
+        "table_over_2^31_floats": (lambda: zemb_cuda.zemb_countmat(
+            torch.empty(2**11, device=dev).expand(2**20, 2**11), idx, cnt),
+            "32-bit"),
+    }
+    for what, (bad, reason) in refusals.items():
+        try:
+            bad()
+        except (RuntimeError, ValueError) as e:
+            if reason not in str(e):
+                raise AssertionError(f"K2 refused {what} for another reason: "
+                                     f"{e}") from e
+        else:
+            raise AssertionError(f"K2 accepted {what}")
 
     ms = _cuda_ms(lambda: zemb_cuda.zemb_countmat(table, idx, cnt))
     plain_ms = _cuda_ms(lambda: zemb_cuda.zemb_countmat_plain(table, idx, cnt))
@@ -195,6 +279,8 @@ def check_k2(batch, dev):
     bound_ms, bound_by = _bound(nbytes, 2 * nnz * H + R * P)
     _log("k2", shapes=f"R={R},P={P},Zc={Zc},H={H}", nnz_C=nnz,
          dense_gflop=2 * R * Zc * H / 1e9, max_abs_err=err, C_equal=True,
+         deterministic=True, equals_k3=True, ragged=",".join(ragged),
+         refused=",".join(refusals), **_plan_fields(plan),
          ms=ms, plain_ms=plain_ms, library_matmul_ms=library_ms,
          bound_ms=bound_ms, bound_by=bound_by, ok=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -279,19 +365,22 @@ def counting_batch(dev):
 
 
 def check_k3(batch, dev):
-    """K3 against its plain version at the PPGN_eff width shapes, and on a
-    ragged case: E not a multiple of 128, H not a multiple of 32 and over
-    one 128-column tile, P over one 32-entry chunk, duplicate ids in a
-    row, ids outside [0, Z)."""
+    """K3 against its plain version at the PPGN_eff width shapes (the
+    table too tall for shared memory: rows read through L1), two calls
+    equal; the same rows with the table cut to 128 rows (resident in
+    shared memory); the ragged cases of `_ragged_cases`, resident and
+    through L1."""
     import torch.nn.functional as F
 
-    from escgnn_tpu_torch.ops import zemb_gather
+    from escgnn_tpu_torch.ops import smem_plan, zemb_gather
 
     gen = torch.Generator(device=dev).manual_seed(3)
     idx = batch.enc_idx.to(torch.int32).contiguous()
     cnt = batch.enc_cnt.to(torch.float32).contiguous()
     E, P = idx.shape
     Z, H = 1800, PPGN_EMB
+    sms = smem_plan.sm_count(dev)
+    plan = smem_plan.smem_plan(Z, H, sms)
     table = torch.randn(Z, H, device=dev, generator=gen)
     got = zemb_gather.zemb_gather(table, idx, cnt)
     want = zemb_gather.zemb_gather_plain(table, idx, cnt)
@@ -300,17 +389,21 @@ def check_k3(batch, dev):
     # hundred), summed over up to 56 entries in another order
     tol = dict(rtol=1e-5, atol=1e-4)
     err = _check_close("K3", got, want, **tol)
+    if not torch.equal(got, zemb_gather.zemb_gather(table, idx, cnt)):
+        raise AssertionError("K3 is not deterministic from run to run")
+    # the same rows with the table cut to 128 rows (ids modulo 128): the
+    # table slice is resident in shared memory
+    cut, cut_ids = table[:128].contiguous(), (idx % 128).contiguous()
+    if not smem_plan.smem_plan(128, H, sms).resident:
+        raise AssertionError("K3: a 128-row table is not planned resident")
+    _check_close("K3 cut table", zemb_gather.zemb_gather(cut, cut_ids, cnt),
+                 zemb_gather.zemb_gather_plain(cut, cut_ids, cnt), **tol)
 
-    Er, Pr, Hr = 1000, 37, 200
-    ir = torch.randint(0, Z, (Er, Pr), device=dev, generator=gen,
-                       dtype=torch.int32)
-    cr = torch.randint(0, 6, (Er, Pr), device=dev, generator=gen).float()
-    ir[::7, :5] = 17      # duplicates
-    ir[3, 0], cr[3, 0] = Z, 4.0    # outside the table: contributes 0
-    ir[5, 1], cr[5, 1] = -2, 3.0
-    tr = torch.randn(Z, Hr, device=dev, generator=gen)
-    _check_close("K3 ragged", zemb_gather.zemb_gather(tr, ir, cr),
-                 zemb_gather.zemb_gather_plain(tr, ir, cr), **tol)
+    ragged = []
+    for name, tr, ir, cr in _ragged_cases(gen, dev):
+        _check_close(f"K3 ragged {name}", zemb_gather.zemb_gather(tr, ir, cr),
+                     zemb_gather.zemb_gather_plain(tr, ir, cr), **tol)
+        ragged.append(name)
 
     ms = _cuda_ms(lambda: zemb_gather.zemb_gather(table, idx, cnt))
     plain_ms = _cuda_ms(lambda: zemb_gather.zemb_gather_plain(table, idx, cnt))
@@ -319,10 +412,15 @@ def check_k3(batch, dev):
     idx64 = idx.long()
     library_ms = _cuda_ms(lambda: F.embedding_bag(
         idx64, table, per_sample_weights=cnt, mode="sum"))
-    nnz = int((cnt != 0).sum().item())
-    nbytes = E * P * 4 * 2 + Z * H * 4 + E * H * 4
+    nonzero = cnt != 0
+    nnz = int(nonzero.sum().item())
+    # the table rows this batch's entries touch, each read once
+    rows = int(torch.unique(idx[nonzero & (idx >= 0) & (idx < Z)]).numel())
+    nbytes = E * P * 4 * 2 + rows * H * 4 + E * H * 4
     bound_ms, bound_by = _bound(nbytes, 2 * nnz * H)
-    _log("k3", shapes=f"E={E},P={P},Z={Z},H={H}", nnz=nnz, max_abs_err=err,
+    _log("k3", shapes=f"E={E},P={P},Z={Z},H={H}", nnz=nnz,
+         table_rows_touched=rows, max_abs_err=err, deterministic=True,
+         ragged=",".join(ragged), **_plan_fields(plan),
          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
          library="F.embedding_bag(mode=sum,per_sample_weights)",
          bound_ms=bound_ms, bound_by=bound_by, ok=True)

@@ -3,8 +3,9 @@
 Each source `csrc/<name>.cu` exports plain C launchers and is compiled by
 nvcc for Hopper (`sm_90a`) into `build/escgnn_tpu_torch/lib<name>.so` at
 the root of the checkout, then loaded with ctypes. A library is rebuilt
-when it is missing or older than its source. `build_all` starts one nvcc
-per source at once and waits for all of them.
+when it is missing or older than its source or a shared header
+(`csrc/*.cuh`). `build_all` starts one nvcc per source at once and waits
+for all of them.
 
 Nothing here runs at import time, and there is no fallback: a missing
 nvcc or a failed compile raises.
@@ -37,11 +38,12 @@ SIGNATURES = {
         "expand_segsum_partial_floats": (_L, [_I, _I]),
     },
     "zemb_countmat": {
-        "zemb_countmat_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
-        "zemb_countmat_smem_bytes": (_I, [_I]),
+        "zemb_countmat_f32": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     },
     "zemb_gather": {
-        "zemb_gather_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
+        "zemb_gather_f32": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     },
     "ppgn_pool": {
         "ppgn_pool_f32": (_I, [_P, _I, _I, _I, _P, _P]),
@@ -67,8 +69,14 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any header in
+    `csrc/`."""
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names=None) -> None:

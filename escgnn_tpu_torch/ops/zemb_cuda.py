@@ -2,10 +2,12 @@
 
 Counterpart of the count-matrix part of `escgnn_tpu/ops/zemb_pallas.py`
 (`zemb_countmat_pallas`). For the dedup + bucket-compacted layout,
-`csrc/zemb_countmat.cu` builds C[r, z] = sum_p cnt[r, p] * [idx[r, p] == z]
-in shared memory and multiplies it with the (Zc, H) active table in f32,
-writing both z (R, H) and C (R, Zc) (see the source for the design and
-its bound). C makes the table backward one matmul, dT = C^T @ dU.
+`csrc/zemb_countmat.cu` writes C[r, z] = sum_p cnt[r, p] * [idx[r, p] == z]
+and z = C @ table over the (Zc, H) active table in f32, a warp per row
+walking the row's nonzero entries with the table held in each SM's shared
+memory (read through L1 when its slice does not fit: `ops/smem_plan.py`;
+see `csrc/zemb_rows.cuh` for the design and the source for its bound). C
+makes the table backward one matmul, dT = C^T @ dU.
 
 `zemb_countmat` launches the kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors.
@@ -16,12 +18,10 @@ from __future__ import annotations
 import torch
 
 from escgnn_tpu_torch import _build
+from escgnn_tpu_torch.ops import smem_plan
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
-
-# shared memory one block may use on Hopper (227 KB)
-_MAX_SMEM_BYTES = 232448
 
 
 def count_matrix(enc_idx, enc_cnt, num_buckets: int):
@@ -47,34 +47,16 @@ def zemb_countmat(table, enc_idx, enc_cnt):
     (z (R, H) f32, C (R, Zc) f32)."""
     if table.device.type == "cpu":
         return zemb_countmat_plain(table, enc_idx, enc_cnt)
-    if table.device.type != "cuda":
-        raise ValueError(f"zemb_countmat: unsupported device {table.device}")
-    if table.dtype != torch.float32 or table.dim() != 2:
-        raise ValueError(f"table must be (Zc, H) float32, got "
-                         f"{tuple(table.shape)} {table.dtype}")
-    if enc_idx.dtype != torch.int32 or enc_idx.dim() != 2:
-        raise ValueError(f"enc_idx must be (R, P) int32, got "
-                         f"{tuple(enc_idx.shape)} {enc_idx.dtype}")
-    if enc_cnt.dtype != torch.float32 or enc_cnt.shape != enc_idx.shape:
-        raise ValueError(f"enc_cnt must be {tuple(enc_idx.shape)} float32, "
-                         f"got {tuple(enc_cnt.shape)} {enc_cnt.dtype}")
-    for t in (table, enc_idx, enc_cnt):
-        if t.device != table.device or not t.is_contiguous():
-            raise ValueError("inputs must be contiguous and on one device")
+    smem_plan.check_inputs("zemb_countmat", table, enc_idx, enc_cnt)
     Z, H = table.shape
     R, P = enc_idx.shape
-    lib = _build.load("zemb_countmat")
-    smem = lib.zemb_countmat_smem_bytes(Z)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"zemb_countmat: a {Z}-bucket count tile needs {smem} bytes of "
-            f"shared memory, above the {_MAX_SMEM_BYTES} a block may use"
-        )
+    plan = smem_plan.smem_plan(Z, H, smem_plan.sm_count(table.device))
     z = torch.empty(R, H, dtype=torch.float32, device=table.device)
     C = torch.empty(R, Z, dtype=torch.float32, device=table.device)
-    rc = lib.zemb_countmat_f32(
+    rc = _build.load("zemb_countmat").zemb_countmat_f32(
         table.data_ptr(), enc_idx.data_ptr(), enc_cnt.data_ptr(),
-        R, P, Z, H, z.data_ptr(), C.data_ptr(),
+        R, P, Z, H, plan.slice_cols, plan.blocks_per_slice, plan.table_bytes,
+        z.data_ptr(), C.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(rc, "zemb_countmat")

@@ -5,11 +5,13 @@ e of the (E, P) encoding,
 
     z[e] = sum_p cnt[e, p] * table[idx[e, p]]          (E, H) f32
 
-over the full (Z, H) table. `csrc/zemb_gather.cu` gathers the table rows
-directly, a warp per edge row, skipping entries with a zero count, in f32
-(see the source for the design and its bound). It is forward-only, like
-the TPU kernel: the table gradient is the count-matrix product in
-`ops/zemb.py`.
+over the full (Z, H) table. `csrc/zemb_gather.cu` walks the rows with a
+warp each, skipping entries with a zero count, in f32 and in ascending p,
+with the table held in each SM's shared memory when a 128-column slice of
+it fits (Z <= `smem_plan.MAX_RESIDENT_ROWS`) and read through L1 otherwise
+(see `csrc/zemb_rows.cuh` for the design and the source for its bound).
+It is forward-only, like the TPU kernel: the table gradient is the
+count-matrix product in `ops/zemb.py`.
 
 `zemb_gather` launches the kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from escgnn_tpu_torch import _build
+from escgnn_tpu_torch.ops import smem_plan
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -41,28 +44,15 @@ def zemb_gather(table, enc_idx, enc_cnt):
     f32."""
     if table.device.type == "cpu":
         return zemb_gather_plain(table, enc_idx, enc_cnt)
-    if table.device.type != "cuda":
-        raise ValueError(f"zemb_gather: unsupported device {table.device}")
-    if table.dtype != torch.float32 or table.dim() != 2:
-        raise ValueError(f"table must be (Z, H) float32, got "
-                         f"{tuple(table.shape)} {table.dtype}")
-    if enc_idx.dtype != torch.int32 or enc_idx.dim() != 2:
-        raise ValueError(f"enc_idx must be (E, P) int32, got "
-                         f"{tuple(enc_idx.shape)} {enc_idx.dtype}")
-    if enc_cnt.dtype != torch.float32 or enc_cnt.shape != enc_idx.shape:
-        raise ValueError(f"enc_cnt must be {tuple(enc_idx.shape)} float32, "
-                         f"got {tuple(enc_cnt.shape)} {enc_cnt.dtype}")
-    for t in (table, enc_idx, enc_cnt):
-        if t.device != table.device or not t.is_contiguous():
-            raise ValueError("inputs must be contiguous and on one device")
+    smem_plan.check_inputs("zemb_gather", table, enc_idx, enc_cnt)
     Z, H = table.shape
     E, P = enc_idx.shape
-    lib = _build.load("zemb_gather")
+    plan = smem_plan.smem_plan(Z, H, smem_plan.sm_count(table.device))
     out = torch.empty(E, H, dtype=torch.float32, device=table.device)
-    rc = lib.zemb_gather_f32(
+    rc = _build.load("zemb_gather").zemb_gather_f32(
         table.data_ptr(), enc_idx.data_ptr(), enc_cnt.data_ptr(),
-        E, P, Z, H, out.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
+        E, P, Z, H, plan.slice_cols, plan.blocks_per_slice, plan.table_bytes,
+        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(rc, "zemb_gather")
     global launches

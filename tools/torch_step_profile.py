@@ -137,8 +137,8 @@ def main() -> int:
         "port_kernels_ms_per_step": {
             n[:60]: v[0] / args.steps for n, v in by_name.items()
             if any(k in n for k in ("chunk_pass", "offsets_pass",
-                                    "row_pass", "countmat_kernel",
-                                    "zemb_gather_kernel", "pool_kernel"))},
+                                    "row_pass", "zemb_rows_kernel",
+                                    "pool_kernel"))},
         "top_kernels_ms_per_step": [
             {"name": n[:90], "ms": v[0] / args.steps,
              "calls": v[1] / args.steps} for n, v in top],
