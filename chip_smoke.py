@@ -107,46 +107,122 @@ def flagship_config():
     )
 
 
+def _device_kernels(fn) -> int:
+    """The kernels one call of `fn` launches, counted from the profiler's
+    device events (a warm call first, so that nothing is built or
+    allocated for the first time inside the profile)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.name)
+
+
+def _k1_cases(batch, dev, gen):
+    """(name, dZ, perm, rows_sorted, R, exact) cases for K1; `exact`: held
+    to the f64 sum (f32 input), else to the plain version (bf16 input).
+    The flagship's sorted view with dZ contiguous, as the first 256 columns
+    of an (E, 288) tensor (the step's layout) and 4 bytes off 16 (single
+    columns); bf16 contiguous, at H 100 (single columns) and as the first
+    100 columns of a 104-wide tensor (8-wide units and a 4-column tail);
+    ragged ids with gaps and trailing rows; a run of 30% of the edges over
+    many blocks, with leading, gap and trailing rows."""
+    perm, rows = batch.enc_edge_perm, batch.enc_row_sorted
+    E, R, H = perm.shape[0], batch.enc_idx.shape[0], 256
+    wide = torch.randn(E, H + 32, device=dev, generator=gen)
+    step = wide[:, :H]
+    cases = [("flagship_f32", step.contiguous(), perm, rows, R, True),
+             ("step_f32_ld288", step, perm, rows, R, True),
+             ("f32_ld288_off4", wide[:, 1:H + 1], perm, rows, R, True),
+             ("flagship_bf16", step.to(torch.bfloat16), perm, rows, R, False)]
+    w16 = torch.randn(E, 104, device=dev, generator=gen).to(torch.bfloat16)
+    cases += [("bf16_h100", w16[:, :100].contiguous(), perm, rows, R, False),
+              ("bf16_h100_ld104", w16[:, :100], perm, rows, R, False)]
+    def perm_of(n):
+        return torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+
+    # ragged: 1000 edges on ids 0..248 with gaps, 300 rows, H 96
+    ids = torch.randint(0, 125, (1000,), device=dev, generator=gen) * 2
+    cases.append(("ragged", torch.randn(1000, 96, device=dev, generator=gen),
+                  perm_of(1000), torch.sort(ids).values.to(torch.int32), 300,
+                  True))
+    # long run: 6000 of 20000 edges on row 1000, the rest on even ids in
+    # [6, 2500); 3000 rows
+    n, long_n = 20000, 6000
+    ids = torch.randint(3, 1250, (n,), device=dev, generator=gen) * 2
+    ids[:long_n] = 1000
+    cases.append(("long_run", torch.randn(n, H, device=dev, generator=gen),
+                  perm_of(n), torch.sort(ids).values.to(torch.int32), 3000,
+                  True))
+    return cases
+
+
 def check_k1(batch, dev):
-    """K1 against its plain version at the flagship shapes (f32 and bf16
-    gradients) and on a ragged case with gaps and trailing empty rows."""
-    from escgnn_tpu_torch.ops import expand_cuda
+    """K1 on every case of `_k1_cases`: close to its reference, two calls
+    bit-equal, every row no id names exactly 0; the step's strided layout
+    bit-equal to the same values contiguous; one launch per call; layouts
+    and spans it does not take refused. Timed on the step's layout (the
+    main path's) beside the contiguous one."""
+    from escgnn_tpu_torch import _build
+    from escgnn_tpu_torch.ops import expand_cuda, smem_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    # f32 sums of up to a few thousand terms against the same sum in f64
+    # (or, for bf16 input, the plain version's f32 index_add_, which adds in
+    # an order that changes from run to run)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    sms = smem_plan.sm_count(dev)
+    results, err = {}, 0.0
+    for name, dZ, perm, rows, R, exact in _k1_cases(batch, dev, gen):
+        got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
+        if exact:
+            want = torch.zeros(R, dZ.shape[1], dtype=torch.float64,
+                               device=dev).index_add_(
+                0, rows.long(), dZ.double().index_select(0, perm.long()))
+        else:
+            want = expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R)
+        torch.cuda.synchronize()
+        e = _check_close(f"K1 {name}", got, want.float(), **tol)
+        if exact:
+            err = max(err, e)
+        if not torch.equal(got, expand_cuda.sorted_segment_sum(dZ, perm,
+                                                               rows, R)):
+            raise AssertionError(f"K1 {name}: not deterministic from run to "
+                                 f"run")
+        unnamed = torch.bincount(rows.long(), minlength=R)[:R] == 0
+        if unnamed.any() and got[unnamed].abs().max().item() != 0:
+            raise AssertionError(f"K1 {name}: a row no id names is not 0")
+        if name == "long_run":
+            # the blocks the long run's sorted positions span
+            lo, hi = int((rows < 1000).sum()), int((rows <= 1000).sum())
+            span = expand_cuda.segsum_plan(len(rows), dZ.shape[1], sms).span
+            long_blocks = (hi - 1) // span - lo // span + 1
+            if long_blocks < 10:
+                raise AssertionError(f"K1 long_run spans {long_blocks} blocks")
+        results[name] = (got, int(unnamed.sum().item()))
+    if not torch.equal(results["flagship_f32"][0],
+                       results["step_f32_ld288"][0]):
+        raise AssertionError("K1: the strided step layout differs from the "
+                             "same values contiguous")
+
     perm, rows_sorted = batch.enc_edge_perm, batch.enc_row_sorted
     E, R, H = perm.shape[0], batch.enc_idx.shape[0], 256
-    dZ = torch.randn(E, H, device=dev, generator=gen)
-    # f32 sums of up to a few hundred terms against the same sum in f64:
-    # the plain version's f32 index_add_ adds in an order that changes from
-    # run to run, and two f32 sums can then differ by more than K1's own
-    # rounding
-    tol = dict(rtol=1e-5, atol=1e-4)
-    got = expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R)
-    want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
-        0, rows_sorted.long(), dZ.double().index_select(0, perm.long()))
-    torch.cuda.synchronize()
-    err = _check_close("K1 f32", got, want.float(), **tol)
-    again = expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R)
-    if not torch.equal(got, again):
-        raise AssertionError("K1 is not deterministic from run to run")
-    dZ16 = dZ.to(torch.bfloat16)
-    err16 = _check_close(
-        "K1 bf16", expand_cuda.sorted_segment_sum(dZ16, perm, rows_sorted, R),
-        expand_cuda.sorted_segment_sum_plain(dZ16, perm, rows_sorted, R), **tol)
-
-    # ragged: 1000 edges on ids 0..249 with gaps, 300 rows, H not a
-    # multiple of 32
-    ids = torch.randint(0, 125, (1000,), device=dev, generator=gen) * 2
-    rs = torch.sort(ids).values.to(torch.int32)
-    pm = torch.randperm(1000, device=dev, generator=gen).to(torch.int32)
-    dz = torch.randn(1000, 96, device=dev, generator=gen)
-    got_r = expand_cuda.sorted_segment_sum(dz, pm, rs, 300)
-    _check_close("K1 ragged", got_r,
-                 expand_cuda.sorted_segment_sum_plain(dz, pm, rs, 300), **tol)
-    if got_r[250:].abs().max().item() != 0 or got_r[1:250:2].abs().max().item() != 0:
-        raise AssertionError("K1: empty rows are not 0")
-
-    ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R))
+    wide = torch.randn(E, H + 32, device=dev, generator=gen)
+    dZ, dZc = wide[:, :H], wide[:, :H].contiguous()
+    per_call = _device_kernels(
+        lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R))
+    if per_call != 1:
+        raise AssertionError(f"K1 launched {per_call} kernels in one call")
+    ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm,
+                                                         rows_sorted, R))
+    ms_contiguous = _cuda_ms(
+        lambda: expand_cuda.sorted_segment_sum(dZc, perm, rows_sorted, R))
     plain_ms = _cuda_ms(
         lambda: expand_cuda.sorted_segment_sum_plain(dZ, perm, rows_sorted, R))
     edge_row = batch.enc_edge_row.long()
@@ -154,12 +230,51 @@ def check_k1(batch, dev):
     # batch's unsorted edge -> row map (never called by the port)
     library_ms = _cuda_ms(
         lambda: torch.zeros(R, H, device=dev).index_add_(0, edge_row, dZ))
+    # the strided rows are the same bytes
     nbytes = E * H * 4 + 2 * E * 4 + R * H * 4
     bound_ms, bound_by = _bound(nbytes, E * H)
-    _log("k1", shapes=f"E={E},R={R},H={H}", max_abs_err_f32=err,
-         max_abs_err_bf16=err16, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-         ok=True)
+    plan = expand_cuda.segsum_plan(E, H, sms)
+
+    # refused, each for its own reason: by the C launcher a span outside
+    # [1, 256] and a row stride under H (cudaErrorInvalidValue), by the
+    # wrapper a column stride of 2
+    out_r = torch.empty(R, H, device=dev)
+    part = torch.empty(plan.partial_floats, device=dev)
+
+    def launcher(span, ld):
+        rc = _build.load("expand_segsum").expand_segsum_f32(
+            dZ.data_ptr(), ld, perm.data_ptr(), rows_sorted.data_ptr(), E, H,
+            R, span, out_r.data_ptr(), part.data_ptr(),
+            expand_cuda._counters(dev, R).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "expand_segsum")
+
+    refusals = {
+        "span_0": (lambda: launcher(0, dZ.stride(0)), "CUDA error 1"),
+        "span_257": (lambda: launcher(257, dZ.stride(0)), "CUDA error 1"),
+        "row_stride_under_H": (lambda: launcher(plan.span, H - 1),
+                               "CUDA error 1"),
+        "column_stride_2": (lambda: expand_cuda.sorted_segment_sum(
+            wide[:, ::2], perm, rows_sorted, R), "column stride"),
+    }
+    for what, (bad, reason) in refusals.items():
+        try:
+            bad()
+        except (RuntimeError, ValueError) as e:
+            if reason not in str(e):
+                raise AssertionError(f"K1 refused {what} for another reason: "
+                                     f"{e}") from e
+        else:
+            raise AssertionError(f"K1 accepted {what}")
+    _log("k1", shapes=f"E={E},R={R},H={H}", layout="ld288", span=plan.span,
+         grid=plan.grid, long_run_blocks=long_blocks,
+         cases=",".join(results), zero_rows=",".join(
+             f"{k}:{v[1]}" for k, v in results.items()),
+         max_abs_err_f32=err, deterministic=True,
+         strided_equals_contiguous=True, refused=",".join(refusals),
+         launches_per_call=per_call, ms=ms, ms_contiguous=ms_contiguous,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+         bound_by=bound_by, ok=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 

@@ -33,9 +33,12 @@ NVCC_FLAGS = [
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "expand_segsum": {
-        "expand_segsum_f32": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-        "expand_segsum_bf16": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-        "expand_segsum_partial_floats": (_L, [_I, _I]),
+        # dZ, its row stride, perm, rows_sorted, E, H, R, span, out,
+        # partial, counters, stream
+        "expand_segsum_f32": (
+            _I, [_P, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+        "expand_segsum_bf16": (
+            _I, [_P, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     },
     "zemb_countmat": {
         "zemb_countmat_f32": (

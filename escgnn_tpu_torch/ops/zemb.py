@@ -107,7 +107,9 @@ def zemb_unique_rows(table, batch):
 
 
 class _ExpandRows(torch.autograd.Function):
-    """z = u[edge_row]; backward dU = segsum(dZ[perm], rows_sorted) (K1)."""
+    """z = u[edge_row]; backward dU = segsum(dZ[perm], rows_sorted) (K1).
+    The flagship's dZ is a column slice of the (E, H + 32) gradient of
+    [z_emb | edge-type embedding]: K1 reads it in place."""
 
     @staticmethod
     def forward(ctx, u, edge_row, perm, rows_sorted):
@@ -119,7 +121,7 @@ class _ExpandRows(torch.autograd.Function):
     def backward(ctx, dZ):
         perm, rows_sorted = ctx.saved_tensors
         dU = expand_cuda.sorted_segment_sum(
-            dZ.contiguous(), perm, rows_sorted, ctx.num_rows
+            expand_cuda.as_rows(dZ), perm, rows_sorted, ctx.num_rows
         )
         return dU, None, None, None
 

@@ -11,7 +11,10 @@ PPGN_eff counting path exactly as chip_smoke.py does, takes
 clock around synchronized steps), device busy ms per step (the union of
 the kernels' intervals on the GPU timeline), the device's idle share,
 kernel launches per step, the device time of the port's own CUDA
-kernels, and the kernels with the most device time.
+kernels, the kernels with the most device time and, for the flagship, the
+copies of an (E, hidden) f32 tensor to another: K1 reads its strided
+gradient in place, so the step should make none (ops are recorded with
+their shapes to find them).
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def main() -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             train_step(model, opt, batch, loss_fn)
@@ -126,6 +129,20 @@ def main() -> int:
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy / args.steps
+    # the device time of aten::copy_ calls from one (E, hidden) f32 tensor
+    # to another, such as a contiguous copy of K1's strided input
+    copies = None
+    if args.model == "flagship":
+        shape = [batch.num_edges, flagship_config().hidden]
+        hits = [e for e in prof.events()
+                if e.name == "aten::copy_" and e.input_shapes
+                and list(e.input_shapes[:2]) == [shape, shape]
+                and (getattr(e, "input_dtypes", None)
+                     or ["float"] * 2)[:2] == ["float", "float"]]
+        copies = {"shape": shape,
+                  "calls_per_step": len(hits) / args.steps,
+                  "ms_per_step": sum(k.duration for e in hits
+                                     for k in e.kernels) / 1e3 / args.steps}
     print(json.dumps({
         "card": smi, "model": args.model, "impl": args.impl,
         "pool": args.pool if args.model == "ppgn" else None,
@@ -136,9 +153,9 @@ def main() -> int:
         "kernel_launches_per_step": len(kernels) / args.steps,
         "port_kernels_ms_per_step": {
             n[:60]: v[0] / args.steps for n, v in by_name.items()
-            if any(k in n for k in ("chunk_pass", "offsets_pass",
-                                    "row_pass", "zemb_rows_kernel",
+            if any(k in n for k in ("segsum_kernel", "zemb_rows_kernel",
                                     "pool_kernel"))},
+        "f32_copies_e_by_hidden": copies,
         "top_kernels_ms_per_step": [
             {"name": n[:90], "ms": v[0] / args.steps,
              "calls": v[1] / args.steps} for n, v in top],
