@@ -4,8 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `escgnn_tpu_torch/csrc/`, holds each one
-against its plain PyTorch version on the card, then drives two main
-paths:
+against its plain PyTorch version on the card, then drives these paths:
 
   * the flagship ESC-GNN train step (128 synthetic ZINC molecules,
     uniform + dedup batch, NestedGINEff hidden 256 x 5 layers with bf16
@@ -14,7 +13,14 @@ paths:
   * the PPGN_eff counting train step (128 counting graphs, width batch,
     PPGN emb 128 x 3 regular blocks with bf16 block stacks, node-level L1
     loss, Adam 5e-4) for 10 steps and one eval step through the row-gather
-    z kernel and the pooling kernel, and one step with the default impls.
+    z kernel and the pooling kernel, and one step with the default impls;
+  * the driver twins at their default widths, in a temporary directory:
+    `[run_zinc]` (3 epochs on 1000 synthetic molecules, each epoch one
+    CUDA-graphed pool step), `[pool_graph]` (one epoch graphed against
+    one eager from the same state, K1 counted per graphed step by the
+    profiler) and `[run_graphcount]` (3 epochs on 400 counting graphs,
+    the best checkpoint restored and re-evaluated, the cache hit, a warm
+    start, one PPGN_eff epoch).
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. The last two lines are the kernel table
@@ -33,6 +39,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -107,21 +114,48 @@ def flagship_config():
     )
 
 
+def _device_events(prof, name_part: str = ""):
+    """Device kernel and copy events of a profile whose name holds
+    `name_part`."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.name and name_part in e.name]
+
+
+def _kernel_events(prof, name_part: str = "") -> int:
+    return len(_device_events(prof, name_part))
+
+
+def _busy_ms(prof) -> float:
+    """Device time of a profile's kernels and copies, in ms."""
+    return sum(e.time_range.elapsed_us() for e in _device_events(prof)) / 1e3
+
+
+def _host_ms(prof, name: str) -> float:
+    """Host time of a profile's runtime calls named `name`, in ms."""
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name == name) / 1e3
+
+
+def _profiled(fn):
+    """(fn's result, its profile), synchronized inside the profile."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
 def _device_kernels(fn) -> int:
     """The kernels one call of `fn` launches, counted from the profiler's
     device events (a warm call first, so that nothing is built or
     allocated for the first time inside the profile)."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.name)
+    return _kernel_events(_profiled(fn)[1])
 
 
 def _k1_cases(batch, dev, gen):
@@ -727,6 +761,277 @@ def run_ppgn(batch, spec, real_edges, dev):
     return launches
 
 
+def _check_epochs(name, res, steps):
+    """Finite losses that fall from the first epoch to the last, and the
+    expected steps per epoch."""
+    losses = [e["loss"] for e in res["epochs"]]
+    maes = [e["val_mae"] for e in res["epochs"]]
+    if not all(math.isfinite(v) for v in losses + maes):
+        raise AssertionError(f"{name}: non-finite loss or MAE: {losses} {maes}")
+    if len(losses) > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    if any(e["steps"] != steps for e in res["epochs"]):
+        raise AssertionError(f"{name}: steps per epoch "
+                             f"{[e['steps'] for e in res['epochs']]}, want "
+                             f"{steps}")
+
+
+def _epoch_fields(res):
+    """Per-epoch numbers of a driver run, for a phase line; ms/step is the
+    train part of the epoch (synchronized by reading its mean loss) over
+    its steps."""
+    eps = res["epochs"]
+    return dict(
+        data_seconds=round(res["data_seconds"], 3),
+        epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+        loss=json.dumps([e["loss"] for e in eps]),
+        val_mae=json.dumps([e["val_mae"] for e in eps]),
+        best_val_mae=res["best_val"], best_test_mae=res["best_test"],
+        graphed_ms_per_step=json.dumps(
+            [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]))
+
+
+def run_zinc_twin(work: str, smi: str):
+    """`[run_zinc]`: the ZINC twin's main() at its defaults (hidden 256 x
+    5 layers, batch 128, lr 5e-4, `--bn_eval running`) on 1000 synthetic
+    molecules for 3 epochs: 800 train graphs, 7 steps per epoch over 4
+    pools, each epoch one graphed pool step. K1's wrapper counts the
+    warm-up steps and the capture only; `[pool_graph]` counts its launches
+    in a graphed epoch with the profiler. Returns the run's result."""
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    argv = ["--num_graphs", "1000", "--epochs", "3", "--num_workers", "2",
+            "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, "zinc")]
+    expand_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = run_zinc.main(argv)
+    seconds = time.perf_counter() - t0
+    k1_wrapper = expand_cuda.launches
+    _check_epochs("run_zinc", res, steps=7)
+    if k1_wrapper < 1:
+        raise AssertionError("run_zinc did not launch K1")
+    for f in ("config.json", "cmd_input.txt", "log.txt"):
+        if not os.path.exists(os.path.join(res["res_dir"], f)):
+            raise AssertionError(f"run_zinc wrote no {f}")
+    _log("run_zinc", seconds=round(seconds, 3), graphs=1000, steps_per_epoch=7,
+         **_epoch_fields(res), k1_wrapper_launches=k1_wrapper,
+         card=json.dumps(smi), ok=True)
+    return res
+
+
+def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev):
+    """`[pool_graph]`: from one state snapshot of `model`, one epoch of a
+    twin's train pool (its graphs, spec and model at full width) through
+    the graphed pool step and one through eager steps. The first step's
+    loss agrees at rel 1e-5 and every later one at rel 1e-3: the path is
+    f32, but pooling and the embedding backward add with atomics in no
+    fixed order, and Adam amplifies that noise. K1 is counted by the
+    profiler in a graphed epoch: once per step. Prints both ms/step, the
+    device's busy time per step and the launches per eager step."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.prefetch import pool_entry, stacked_batch_pools
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        make_pool_train_step,
+        train_step,
+    )
+
+    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev)
+    pool = pools[0]
+    order = np.random.default_rng(0).permutation(steps)
+    init = copy.deepcopy(model.state_dict())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / steps
+
+    opt = adam_with_plateau(model.parameters(), lr, capturable=True)
+    t0 = time.perf_counter()
+    graphed = make_pool_train_step(model, opt, loss_fn, pool)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    g_losses, g_ms = timed(lambda: graphed(pool, order).tolist())
+
+    model.load_state_dict(init)
+    opt_e = adam_with_plateau(model.parameters(), lr, capturable=True)
+    e_losses, e_ms = timed(lambda: torch.stack([
+        train_step(model, opt_e, pool_entry(pool, int(j)), loss_fn)
+        for j in order]).tolist())
+    rel = [abs(g - e) / abs(e) for g, e in zip(g_losses, e_losses)]
+    if rel[0] > 1e-5 or max(rel) > 1e-3:
+        raise AssertionError(f"{twin}: graphed losses {g_losses} != eager "
+                             f"{e_losses}")
+
+    # launches: the profiler's device events in one graphed epoch (K1 by
+    # its symbol) and in one eager step
+    _, prof = _profiled(lambda: graphed(pool, order))
+    k1_graphed = _kernel_events(prof, "segsum_kernel")
+    graphed_events = _kernel_events(prof)
+    graphed_busy = _busy_ms(prof) / steps
+    launch_host = _host_ms(prof, "cudaGraphLaunch") / steps
+    if k1_graphed != steps:
+        raise AssertionError(f"{twin}: K1 ran {k1_graphed} times in a "
+                             f"graphed epoch of {steps} steps")
+    eager_step = lambda: train_step(  # noqa: E731
+        model, opt_e, pool_entry(pool, int(order[0])), loss_fn)
+    per_eager = _device_kernels(eager_step)
+    _, prof = _profiled(eager_step)
+    eager_busy = _busy_ms(prof)
+    _log("pool_graph", twin=twin, steps=steps, capture_s=round(capture_s, 3),
+         graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+         graphed_busy_ms_per_step=graphed_busy,
+         eager_busy_ms_per_step=eager_busy,
+         graphed_idle_share=1 - graphed_busy / g_ms,
+         graph_launch_host_ms_per_step=launch_host,
+         eager_idle_share=1 - eager_busy / e_ms,
+         first_loss_rel=rel[0], max_loss_rel=max(rel),
+         graphed_losses=json.dumps(g_losses), eager_losses=json.dumps(e_losses),
+         k1_per_graphed_epoch=k1_graphed,
+         device_events_per_graphed_step=graphed_events / steps,
+         launches_per_eager_step=per_eager, ok=True)
+
+
+def check_zinc_pool_graph(work: str, zinc_res, dev):
+    """`[pool_graph]` on the ZINC twin's train split (read from its cache,
+    normalized as the run did) with its model."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.featurize.cache import cache_path, load_graphs
+    from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEff
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    args = run_zinc.build_parser().parse_args([])
+    train = load_graphs(cache_path(os.path.join(work, "data", "zinc_synth"),
+                                   "train_n1000_s0_esc_h3_rd_sl"))
+    for g in train:
+        g.y = ((g.y - zinc_res["mean"]) / zinc_res["std"]).astype(np.float32)
+    model = NestedGINEff(run_zinc.zinc_model_config(args), device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    check_pool_graph("run_zinc", model, l1_graph_loss, train,
+                     zinc_res["spec"], args.lr, dev)
+
+
+def run_graphcount_twin(work: str, smi: str):
+    """`[run_graphcount]`: the counting twin's main() at its defaults
+    (NestedGIN_eff, h 3, hidden 256 x 5 layers, batch 128, lr 5e-3) on 400
+    graphs for 3 epochs; the best checkpoint restored into a fresh model
+    and evaluated without a refresh gives the logged best val MAE (rel
+    1e-5); a second featurization call hits the cache and gives equal
+    arrays; `[pool_graph]` on its pool; a 1-epoch run warm-started from
+    the checkpoint (bf16 conv stacks, clipped, `--analyze`) has a lower
+    epoch-1 loss than the cold run; 1 epoch of PPGN_eff; 2 eager epochs
+    with `--reshuffle_membership --bn_eval batch` whose loss falls."""
+    import glob
+
+    import numpy as np
+
+    from escgnn_tpu_torch import run_graphcount as rg
+    from escgnn_tpu_torch.data.counting import (
+        CountingDatasetConfig,
+        generate_counting_graphs,
+        normalize_targets,
+    )
+    from escgnn_tpu_torch.data.prefetch import stack_split
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.ops import expand_cuda
+    from escgnn_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_model_tree,
+        model_tree,
+    )
+    from escgnn_tpu_torch.train.loop import l1_node_loss, make_pool_eval_step
+
+    data = os.path.join(work, "data")
+    base = ["--num_graphs", "400", "--data_dir", data]
+    cold_dir = os.path.join(work, "count_cold")
+    expand_cuda.launches = 0
+    t0 = time.perf_counter()
+    cold = rg.main(base + ["--epochs", "3", "--res_dir", cold_dir])
+    cold_s = time.perf_counter() - t0
+    k1_wrapper = expand_cuda.launches
+    _check_epochs("run_graphcount", cold, steps=3)
+    if k1_wrapper < 1:
+        raise AssertionError("run_graphcount did not launch K1")
+
+    # the best checkpoint, restored and evaluated with its saved stats
+    args = rg.build_parser().parse_args(base)
+    cache_files = sorted(glob.glob(os.path.join(data, "count_cycle", "*.npz")))
+    mtimes = [os.path.getmtime(f) for f in cache_files]
+    splits = rg.build_datasets(args)
+    if len(cache_files) != 3 or [os.path.getmtime(f)
+                                 for f in cache_files] != mtimes:
+        raise AssertionError(f"the second featurization did not hit the "
+                             f"cache: {cache_files}")
+    fresh = featurize_many(
+        generate_counting_graphs(CountingDatasetConfig(num_graphs=400))["val"],
+        EscConfig(h=3, use_rd=True, self_loop=True))
+    for a, b in zip(splits["val"], fresh):
+        for f in ("edge_index", "x", "y", "enc_idx", "enc_cnt", "enc_offsets"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"cached {f} differs from a fresh "
+                                     f"featurization")
+    splits, _, std = normalize_targets(splits, args.target)
+    spec = cold["spec"]
+    model = rg.build_model(args, spec, splits["train"][0].x.shape[1],
+                           torch.device("cuda", 0))
+    ckpt = CheckpointManager(os.path.join(cold_dir, "ckpt"))
+    load_model_tree(model, ckpt.restore(template=model_tree(model)))
+    e, c = make_pool_eval_step(model, node_level=True)(
+        stack_split(splits["val"], spec))
+    restored_mae = float(e) / float(c) * std
+    if not math.isclose(restored_mae, cold["best_val"], rel_tol=1e-5):
+        raise AssertionError(f"restored best checkpoint: val MAE "
+                             f"{restored_mae} != logged {cold['best_val']}")
+
+    check_pool_graph("run_graphcount",
+                     rg.build_model(args, spec, splits["train"][0].x.shape[1],
+                                    torch.device("cuda", 0)),
+                     l1_node_loss, splits["train"], spec, args.lr,
+                     torch.device("cuda", 0))
+
+    # the warm start also captures the bf16 conv stacks and the clip
+    warm = rg.main(base + ["--epochs", "1", "--load_ckpt",
+                           os.path.join(cold_dir, "ckpt"),
+                           "--compute_dtype", "bfloat16", "--grad_clip", "1.0",
+                           "--analyze",
+                           "--res_dir", os.path.join(work, "count_warm")])
+    if not warm["epochs"][0]["loss"] < cold["epochs"][0]["loss"]:
+        raise AssertionError(f"warm start: epoch-1 loss "
+                             f"{warm['epochs'][0]['loss']} not below the cold "
+                             f"run's {cold['epochs'][0]['loss']}")
+    t0 = time.perf_counter()
+    ppgn = rg.main(base + ["--epochs", "1", "--model", "PPGN_eff",
+                           "--res_dir", os.path.join(work, "count_ppgn")])
+    ppgn_s = time.perf_counter() - t0
+    _check_epochs("run_graphcount PPGN_eff", ppgn, steps=3)
+    # the eager path: batches re-formed every epoch by the prefetch thread
+    # (pinned, non-blocking copies), eval with batch statistics
+    eager = rg.main(base + ["--epochs", "2", "--reshuffle_membership",
+                            "--bn_eval", "batch",
+                            "--res_dir", os.path.join(work, "count_eager")])
+    _check_epochs("run_graphcount --reshuffle_membership", eager, steps=3)
+    _log("run_graphcount", seconds=round(cold_s, 3), graphs=400,
+         steps_per_epoch=3, **_epoch_fields(cold),
+         k1_wrapper_launches=k1_wrapper, ckpt_steps=json.dumps(
+             ckpt.all_steps()), restored_val_mae=restored_mae,
+         cache_hit=True, warm_epoch1_loss=warm["epochs"][0]["loss"],
+         ppgn_seconds=round(ppgn_s, 3), ppgn_loss=ppgn["epochs"][0]["loss"],
+         ppgn_graphed_ms_per_step=round(
+             ppgn["epochs"][0]["train_seconds"] / 3 * 1e3, 4),
+         reshuffle_loss=json.dumps([e["loss"] for e in eager["epochs"]]),
+         reshuffle_eager_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / 3 * 1e3, 4)
+              for e in eager["epochs"]]),
+         card=json.dumps(smi), ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -865,6 +1170,12 @@ def main() -> int:
     k4 = check_k4(dev, NUM_GRAPHS, ppgn_spec.max_nodes_per_graph)
     check_small_ppgn(dev)
     ppgn_launches = run_ppgn(ppgn_batch, ppgn_spec, ppgn_edges, dev)
+
+    # 9. the driver twins, in a temporary directory outside the checkout
+    with tempfile.TemporaryDirectory() as work:
+        zinc_res = run_zinc_twin(work, smi)
+        check_zinc_pool_graph(work, zinc_res, dev)
+        run_graphcount_twin(work, smi)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",

@@ -9,14 +9,15 @@ requested device.
 
 This package carries the parts of the JAX batcher that the flagship
 NestedGIN_eff path runs: `BatchSpec.from_graphs` / `BatchSpec.uniform`
-with the `width` and `dedup` encoding layouts. The flat layout, the copy
-and k-set levels and named extras wait for the slices that need them.
+with the `width` and `dedup` encoding layouts, and `batch_iterator`. The
+flat layout, packed batches, the copy and k-set levels and named extras
+wait for the slices that need them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -340,16 +341,49 @@ def pad_and_batch(
     """Pack `graphs` into one `GraphBatch` under `spec`'s budgets, as
     tensors on `device`. Raises if the graphs exceed any budget — a spec
     sized over the full dataset never does."""
+    return batch_from_arrays(batch_arrays(graphs, spec), spec, device)
+
+
+def batch_from_arrays(arrays: dict, spec: BatchSpec, device="cuda",
+                      pin: bool = False) -> GraphBatch:
+    """The `GraphBatch` of host arrays from `batch_arrays` (or stacks of
+    them), as tensors on `device`. `pin`: copy through pinned host memory
+    without blocking the host (the copy is ordered on the current
+    stream)."""
     device = resolve_device(device)
-    fields = {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        for k, v in batch_arrays(graphs, spec).items()
-    }
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if pin and device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
     return GraphBatch(
         nodes_per_graph=spec.uniform_nodes or None,
         edges_per_graph=spec.uniform_edges or None,
-        **fields,
+        **{k: put(v) for k, v in arrays.items()},
     )
+
+
+def batch_iterator(
+    graphs: Sequence[GraphData],
+    spec: BatchSpec,
+    shuffle: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    device="cuda",
+) -> Iterator:
+    """Fixed-count batches: consecutive groups of `spec.num_graphs` (the
+    last one short, padded to the spec's shapes), in an order shuffled by
+    `rng` when `shuffle`. Yields `GraphBatch`es on `device`, or with
+    `device=None` the host arrays of `batch_arrays`."""
+    idx = np.arange(len(graphs))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    bs = spec.num_graphs
+    for i in range(0, len(graphs), bs):
+        arrays = batch_arrays([graphs[j] for j in idx[i:i + bs]], spec)
+        yield arrays if device is None else batch_from_arrays(arrays, spec,
+                                                              device)
 
 
 # fixed coefficients for the row-hash dedup (any odd constants work; the

@@ -1,14 +1,16 @@
-"""Synthetic ZINC-shaped molecules (counterpart of the synthetic branch of
+"""ZINC molecules (counterpart of the ZINC part of
 `escgnn_tpu/data/molecules.py`).
 
-Deterministic graphs with ZINC-12k's shapes and statistics: ~23 heavy
-atoms, 28 node types, 4 bond types and a scalar regression target that
-is a structural function of the graph (so models can learn it). The
-real-pickle branch of the JAX package waits until a ZINC artifact is in
-the repository.
+The reference's ZINC artifact is read when it is present
+(`load_zinc_pickle`); otherwise `synthetic_zinc` makes deterministic
+graphs with ZINC-12k's shapes and statistics: ~23 heavy atoms, 28 node
+types, 4 bond types and a scalar regression target that is a structural
+function of the graph (so models can learn it).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -76,12 +78,56 @@ def synthetic_zinc(num_graphs: int = 2000, seed: int = 0) -> list[GraphData]:
     return out
 
 
-def zinc_splits(num_graphs: int = 2000, seed: int = 0) -> dict:
-    """Deterministic 80/10/10 split of `synthetic_zinc`."""
+def load_zinc_pickle(path: str) -> dict:
+    """Parse the reference's ZINC artifact (`dataset_zinc.py:45-73`): a
+    pickle of (train, val, test) lists of dicts with 'x' (node one-hots or
+    type ids), 'A' (bond_types, n, n) stacked adjacency and 'y' targets.
+    Returns {'train', 'val', 'test'} lists of GraphData with the
+    reference's conversion: edges where A sums to 1 over the bond types,
+    edge type = argmax over the bond axis, y = the last target.
+
+    Unpickling can run code: load only the reference's own artifact."""
+    import pickle
+
+    with open(path, "rb") as f:
+        raw_all = pickle.load(f)
+    out = {}
+    for name, raw in zip(("train", "val", "test"), raw_all):
+        graphs = []
+        for d in raw:
+            x = np.asarray(d["x"])
+            A = np.asarray(d["A"])
+            y = np.asarray(d["y"], np.float32).reshape(-1)[-1:]
+            begin, end = np.where(A.sum(axis=0) == 1.0)
+            edge_attr = np.argmax(A[:, begin, end].T, axis=-1).astype(np.int32)
+            if x.ndim == 2 and x.shape[1] > 1:
+                x = np.argmax(x, axis=1)
+            x = x.reshape(-1, 1).astype(np.int32)
+            graphs.append(GraphData(
+                num_nodes=int(x.shape[0]),
+                edge_index=np.stack([begin, end]).astype(np.int32),
+                x=x,
+                edge_attr=edge_attr,
+                y=y,
+            ))
+        out[name] = graphs
+    return out
+
+
+def zinc_splits(data_dir: str, num_graphs: int = 2000,
+                seed: int = 0) -> tuple[dict, bool]:
+    """The real ZINC splits when the reference artifact
+    (`<data_dir>/ZINC.pkl` or `<data_dir>/zinc/raw/ZINC.pkl`) exists,
+    otherwise a deterministic 80/10/10 split of `synthetic_zinc`. Returns
+    (splits, is_real)."""
+    for cand in (os.path.join(data_dir, "ZINC.pkl"),
+                 os.path.join(data_dir, "zinc", "raw", "ZINC.pkl")):
+        if os.path.exists(cand):
+            return load_zinc_pickle(cand), True
     raw = synthetic_zinc(num_graphs=num_graphs, seed=seed)
     n_tr, n_val = int(0.8 * len(raw)), int(0.1 * len(raw))
     return {
         "train": raw[:n_tr],
         "val": raw[n_tr:n_tr + n_val],
         "test": raw[n_tr + n_val:],
-    }
+    }, False

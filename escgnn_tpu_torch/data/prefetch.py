@@ -1,0 +1,178 @@
+"""Batch prefetching and device-resident batch pools (counterpart of
+`escgnn_tpu/data/prefetch.py`).
+
+  * `prefetched_batches`: the batches of `batch_iterator`, built `depth`
+    ahead on a background thread, which also issues their copies to the
+    card from pinned host memory.
+  * `materialized_batches`: a fixed split padded once, kept on the card
+    when it is small.
+  * `stack_split` and `stacked_batch_pools`: padded batches stacked along
+    a new leading pool axis on the card, one `GraphBatch` whose tensors
+    carry that axis (fields that are None stay None). A pool step indexes
+    them on the card (`train/loop.py`), so an epoch copies nothing from
+    the host but its order vector. `stacked_batch_pools` draws the JAX
+    package's permutations from the same seed, so both packages train on
+    the same batch sequence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+
+from escgnn_tpu_torch.data.batching import (
+    BatchSpec,
+    batch_from_arrays,
+    batch_iterator,
+)
+from escgnn_tpu_torch.data.container import GraphBatch, GraphData
+from escgnn_tpu_torch.device import resolve_device
+
+_SENTINEL = object()
+
+
+def prefetched_batches(
+    graphs: Sequence[GraphData],
+    spec: BatchSpec,
+    shuffle: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    device="cuda",
+    depth: int = 2,
+) -> Iterator[GraphBatch]:
+    """Yield the batches of `batch_iterator(graphs, spec, shuffle, rng)`
+    on `device`, built `depth` ahead on a background thread. On a CUDA
+    device the thread copies each array through pinned memory without
+    blocking; the copies are ordered before the consumer's work on the
+    same (default) stream."""
+    device = resolve_device(device)
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    err: list[BaseException] = []
+
+    def produce():
+        try:
+            for arrays in batch_iterator(graphs, spec, shuffle=shuffle,
+                                         rng=rng, device=None):
+                q.put(batch_from_arrays(arrays, spec, device, pin=True))
+        except BaseException as e:  # raised again in the consumer
+            err.append(e)
+        finally:
+            q.put(_SENTINEL)
+
+    t = threading.Thread(target=produce, daemon=True)
+    t.start()
+    while True:
+        b = q.get()
+        if b is _SENTINEL:
+            break
+        yield b
+    t.join()
+    if err:
+        raise err[0]
+
+
+def _nbytes(arrays: dict) -> int:
+    return sum(a.nbytes for a in arrays.values())
+
+
+class _CachedBatches:
+    """Padded batches of a fixed split: on the card when they fit in
+    `pin_bytes`, else kept as host arrays and copied on each access."""
+
+    def __init__(self, host: list, spec: BatchSpec, device, pin: bool):
+        self._spec = spec
+        self._device = device
+        self._pin = pin
+        self._batches = ([batch_from_arrays(a, spec, device) for a in host]
+                         if pin else host)
+
+    def __len__(self):
+        return len(self._batches)
+
+    def __getitem__(self, i) -> GraphBatch:
+        b = self._batches[i]
+        return b if self._pin else batch_from_arrays(b, self._spec,
+                                                     self._device, pin=True)
+
+    def __iter__(self):
+        for i in range(len(self._batches)):
+            yield self[i]
+
+
+def materialized_batches(graphs: Sequence[GraphData], spec: BatchSpec,
+                         device="cuda", pin_bytes: int = 256 * 2**20):
+    """Pad a fixed set of graphs once and return a reusable sequence of
+    batches: evaluation sets never reshuffle, so padding them every epoch
+    only burns host time."""
+    device = resolve_device(device)
+    host = list(batch_iterator(graphs, spec, device=None))
+    total = sum(_nbytes(a) for a in host)
+    return _CachedBatches(host, spec, device, pin=total <= pin_bytes)
+
+
+def _stack_host(batches: list) -> dict:
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def stack_split(graphs: Sequence[GraphData], spec: BatchSpec,
+                device="cuda") -> GraphBatch:
+    """Pad a fixed split once and stack its batches along a new leading
+    axis on `device`: each eval or refresh pass over it then reads the
+    card only."""
+    host = list(batch_iterator(graphs, spec, device=None))
+    return batch_from_arrays(_stack_host(host), spec, device)
+
+
+def pool_size(stacked: GraphBatch) -> int:
+    return stacked.graph_mask.shape[0]
+
+
+def pool_entry(stacked: GraphBatch, i: int) -> GraphBatch:
+    """Batch `i` of a stacked pool (views, no copy)."""
+    return dataclasses.replace(
+        stacked, **{k: v[i] for k, v in stacked.tensors().items()})
+
+
+def stacked_batch_pools(
+    graphs: Sequence[GraphData],
+    spec: BatchSpec,
+    k: int = 4,
+    seed: int = 0,
+    max_total_bytes: int = 4 * 2**30,
+    compress: bool = False,
+    device="cuda",
+) -> tuple[list, int]:
+    """`k` membership-shuffled stacked train pools on `device` and the
+    number of batches per epoch.
+
+    Pool i holds the whole train split, padded in the order of the i-th
+    `np.random.default_rng(seed).permutation` (the JAX package's draws).
+    Cycling pools across epochs (pool (epoch-1) % k, its batches in a
+    fresh order each epoch) stands in for re-forming batches every epoch
+    at a bounded copy cost. All pools live on the card at once, so k is
+    cut to keep them under `max_total_bytes`."""
+    if compress:
+        raise NotImplementedError(
+            "compress=True: the compressed pools (data/compress.py) are "
+            "ROADMAP queue 9 of the port")
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    pools: list = []
+    kk = max(1, k)
+    while len(pools) < kk:
+        shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
+        host = _stack_host(list(batch_iterator(shuffled, spec, device=None)))
+        if not pools:
+            per_pool = _nbytes(host)
+            fit = max(1, int(max_total_bytes // max(per_pool, 1)))
+            if fit < kk:
+                print(f"stacked_batch_pools: capping pools {kk} -> {fit} "
+                      f"({per_pool / 2**20:.0f} MB per pool, "
+                      f"budget {max_total_bytes / 2**30:.1f} GB)")
+                kk = fit
+        pools.append(batch_from_arrays(host, spec, device))
+    num_batches = (len(graphs) + spec.num_graphs - 1) // spec.num_graphs
+    return pools, num_batches

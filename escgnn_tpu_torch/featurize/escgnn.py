@@ -49,6 +49,16 @@ class EscConfig:
     def layout(self) -> EncodingLayout:
         return EncodingLayout(use_rd=self.use_rd)
 
+    def cache_key(self) -> str:
+        """The featurization cache's key, the JAX package's string (a
+        cache that either package writes is found by the other)."""
+        key = f"esc_h{self.h}"
+        if self.use_rd:
+            key += "_rd"
+        if self.self_loop:
+            key += "_sl"
+        return key
+
 
 @dataclasses.dataclass
 class EscEncoding:

@@ -9,11 +9,14 @@ per-edge structural encoding rows attached.
 
 from __future__ import annotations
 
+import multiprocessing as mp
+from functools import partial
+
 import numpy as np
 
 from escgnn_tpu_torch.data.container import GraphData
 from escgnn_tpu_torch.featurize.escgnn import EscConfig, esc_encode
-from escgnn_tpu_torch.native.escfeat import esc_encode_native
+from escgnn_tpu_torch.native.escfeat import esc_encode_native, set_num_threads
 
 
 def esc_transform(
@@ -53,8 +56,35 @@ def esc_transform(
 def featurize_many(
     graphs: list[GraphData],
     cfg: EscConfig,
+    num_workers: int = 0,
     self_loop_fill=1,
 ) -> list[GraphData]:
-    """Apply `esc_transform` to every graph, in this process (the native
-    core already spreads each graph's edges over OpenMP threads)."""
-    return [esc_transform(g, cfg, self_loop_fill) for g in graphs]
+    """Apply `esc_transform` to every graph, across `num_workers` forked
+    processes when there are more than one (and more than 8 graphs), in
+    the input's order.
+
+    Fork, as the JAX package does, and not spawn: a spawned worker
+    re-imports the caller's main module and with it torch, seconds per
+    worker. Two hazards of fork, and what is done about them:
+      * a child inherits the parent's OpenMP runtime without its threads,
+        so a parallel region there could wait for them forever: each
+        worker first sets its OpenMP team to one thread (`_one_thread`),
+        and a team of one never waits for the pool;
+      * a process that holds a CUDA context may fork only children that
+        never touch CUDA: the workers run numpy and the native core only.
+    Start no threads of your own before featurizing."""
+    fn = partial(esc_transform, cfg=cfg, self_loop_fill=self_loop_fill)
+    if num_workers and num_workers > 1 and len(graphs) > 8:
+        with mp.get_context("fork").Pool(num_workers,
+                                         initializer=_one_thread) as pool:
+            return pool.map(fn, graphs, chunksize=32)
+    return [fn(g) for g in graphs]
+
+
+def _one_thread() -> None:
+    """Pool initializer: one OpenMP thread per worker, in torch's runtime
+    and in the native core's (the same one when their sonames match)."""
+    import torch
+
+    torch.set_num_threads(1)
+    set_num_threads(1)

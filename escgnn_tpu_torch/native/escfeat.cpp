@@ -17,6 +17,8 @@
 //
 // C ABI + ctypes (see escfeat.py); OpenMP across edges.
 
+#include <omp.h>
+
 #include <cstdint>
 #include <cstring>
 #include <cmath>
@@ -153,7 +155,10 @@ void *escfeat_encode(const int32_t *src_in, const int32_t *dst_in,
   std::vector<std::vector<float>> all_cnt(E);
   int bad = 0;
 
-#pragma omp parallel
+  // a team costs more than it saves on a molecule-sized graph (tens to
+  // hundreds of edges): run those on the calling thread. The rows are
+  // independent, so the result is the same either way.
+#pragma omp parallel if (E >= 1024)
   {
     std::vector<float> H(lay.dim(), 0.0f);
     std::vector<uint8_t> member(n, 0);
@@ -310,5 +315,10 @@ void escfeat_copy(void *h, int32_t *edges_src, int32_t *edges_dst,
 }
 
 void escfeat_free(void *h) { delete (Result *)h; }
+
+// the OpenMP team size of this library's parallel regions (a forked
+// featurizer worker sets 1: it inherits the parent's runtime without its
+// threads, and a team of one never waits for them)
+void escfeat_set_num_threads(int n) { omp_set_num_threads(n); }
 
 }  // extern "C"

@@ -38,9 +38,9 @@ def _load():
             if (not os.path.exists(_LIB)
                     or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
                 # build to a private temp path and rename atomically: the
-                # forked featurizer workers may race this build, and a
-                # concurrent g++ writing the final path could be dlopen'd
-                # half-written (the per-process lock doesn't help there)
+                # featurizer workers may race this build, and a concurrent
+                # g++ writing the final path could be dlopen'd half-written
+                # (the per-process lock doesn't help there)
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{_LIB}.build.{os.getpid()}"
                 subprocess.run(
@@ -72,8 +72,18 @@ def _load():
             ctypes.c_void_p, i32p, i32p, u8p, i32p, f32p, i64p,
         ]
         lib.escfeat_free.argtypes = [ctypes.c_void_p]
+        lib.escfeat_set_num_threads.argtypes = [ctypes.c_int]
+        lib.escfeat_set_num_threads.restype = None
         _lib = lib
         return lib
+
+
+def set_num_threads(n: int) -> None:
+    """The OpenMP team size of the native core's parallel regions (no-op
+    when the core is unavailable)."""
+    lib = _load()
+    if lib is not None:
+        lib.escfeat_set_num_threads(int(n))
 
 
 def _p(a, ctype):

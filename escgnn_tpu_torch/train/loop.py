@@ -1,31 +1,89 @@
 """Training loop building blocks (counterpart of `escgnn_tpu/train/loop.py`).
 
-Adam + L1 loss + ReduceLROnPlateau, as eager PyTorch: `train_step` runs
-forward (BatchNorm in batch-statistics mode), backward and one Adam
-update; `eval_step` runs the model in `eval()` mode (running BatchNorm
-statistics, the JAX package's `bn_mode="running"`).
+Adam + L1 loss + ReduceLROnPlateau, as PyTorch that updates the model in
+place:
+  * `train_step`: forward (BatchNorm in batch-statistics mode),
+    backward, one Adam update (with optax's global-norm clip when the
+    optimizer has one);
+  * `make_pool_train_step`: a whole epoch over a device-resident stacked
+    pool (`data/prefetch.py`) in a given order, the counterpart of the
+    JAX package's one jitted `lax.scan` per epoch. On a CUDA device one
+    train step is captured into a CUDA graph and replayed per batch;
+  * `eval_step` and `make_pool_eval_step`: (sum |err|, count) with the
+    running BatchNorm statistics (`bn_mode="running"`, torch's `eval()`)
+    or the eval batch's own (`bn_mode="batch"`, running statistics left
+    as they were);
+  * `refresh_bn_stats` and `make_pool_refresh_step`: the running
+    statistics re-estimated as the exact average of per-batch moments.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
 import torch
 
 from escgnn_tpu_torch.data.container import GraphBatch
+from escgnn_tpu_torch.data.prefetch import pool_entry, pool_size
 
 
-def adam_with_plateau(params, lr: float) -> torch.optim.Adam:
-    """Adam with torch defaults (b1=0.9, b2=0.999, eps=1e-8 — the same
-    update as optax.adam); the plateau scheduler sets its learning rate
-    through `set_learning_rate`."""
-    return torch.optim.Adam(params, lr=lr)
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: keep g when ||g|| < max_norm,
+    else scale it to g * max_norm / ||g|| (not `clip_grad_norm_`'s
+    max_norm / (||g|| + 1e-6)). The choice is made on the device, so
+    nothing waits for the host."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+class ClippedAdam(torch.optim.Adam):
+    """torch.optim.Adam (b1 0.9, b2 0.999, eps 1e-8: optax.adam's update)
+    whose step first clips the gradients by their global norm
+    (`grad_clip` > 0), as the JAX package's optax chain does."""
+
+    def __init__(self, params, lr, grad_clip: float = 0.0,
+                 capturable: bool = False):
+        super().__init__(params, lr=lr, capturable=capturable)
+        self.grad_clip = float(grad_clip)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if self.grad_clip > 0:
+            clip_by_global_norm_(
+                [p.grad for g in self.param_groups for p in g["params"]
+                 if p.grad is not None], self.grad_clip)
+        return super().step(closure)
+
+
+def adam_with_plateau(params, lr: float, grad_clip: float = 0.0,
+                      capturable: bool = False) -> ClippedAdam:
+    """Adam whose learning rate the plateau scheduler sets through
+    `set_learning_rate`; `grad_clip` > 0 clips by global norm first.
+    `capturable=True` (for `make_pool_train_step` on a CUDA device) keeps
+    the optimizer's step count and learning rate in device tensors, so
+    the update can be captured into a CUDA graph."""
+    params = list(params)
+    if capturable:
+        lr = torch.tensor(float(lr), dtype=torch.float32,
+                          device=params[0].device)
+    return ClippedAdam(params, lr, grad_clip=grad_clip,
+                       capturable=capturable)
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """A device-tensor rate is filled in place (a captured step reads the
+    same tensor); a float one is replaced."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def get_learning_rate(opt: torch.optim.Optimizer) -> float:
@@ -85,14 +143,257 @@ def train_step(
     return loss.detach()
 
 
+# ---------------------------------------------------------------------------
+# BatchNorm running statistics
+# ---------------------------------------------------------------------------
+
+# keep-fraction of the BatchNorm EMA (MaskedBatchNorm's momentum 0.1:
+# new = 0.9 * old + 0.1 * batch). The refresh recovers a batch's own
+# moments from one EMA update: batch = (new - 0.9 * old) / 0.1
+BN_MOMENTUM = 0.9
+_STAT_NAMES = ("running_mean", "running_var")
+
+
+def bn_stats(model: torch.nn.Module) -> dict:
+    """A copy of every BatchNorm running statistic, by buffer name."""
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.rsplit(".", 1)[-1] in _STAT_NAMES}
+
+
+def load_bn_stats(model: torch.nn.Module, stats: dict) -> None:
+    """Write `stats` into the model's buffers in place (a captured step
+    keeps reading the same tensors)."""
+    bufs = dict(model.named_buffers())
+    with torch.no_grad():
+        for k, v in stats.items():
+            bufs[k].copy_(v)
+
+
+def recover_batch_moments(new_stats: dict, old_stats: dict) -> dict:
+    return {k: (new_stats[k] - BN_MOMENTUM * old_stats[k])
+            / (1.0 - BN_MOMENTUM) for k in new_stats}
+
+
+@contextlib.contextmanager
+def _batch_statistics(model: torch.nn.Module):
+    """BatchNorm normalizes with each batch's own statistics; the running
+    statistics are put back as they were on exit."""
+    saved = bn_stats(model)
+    was_training = model.training
+    model.train()
+    try:
+        yield
+    finally:
+        load_bn_stats(model, saved)
+        model.train(was_training)
+
+
+def make_bn_refresh_step(model: torch.nn.Module):
+    """`refresh(base_stats, batch) -> stats`: the running statistics one
+    train-mode forward over `batch` leaves when it starts from
+    `base_stats` (parameters untouched; the model's statistics are put
+    back afterwards).
+
+    Why refresh: with trained embedding tables feeding pre-activation BN
+    (the z_embedding path), activation scales move faster than the
+    momentum-0.1 average follows, and eval with stale running statistics
+    can be far off while the train loss is healthy."""
+
+    @torch.no_grad()
+    def refresh(base_stats: dict, batch: GraphBatch) -> dict:
+        with _batch_statistics(model):
+            load_bn_stats(model, base_stats)
+            model(batch)
+            return bn_stats(model)
+
+    return refresh
+
+
+def refresh_bn_stats(refresh_step, model: torch.nn.Module, batches) -> None:
+    """Set the model's running statistics to the EXACT average of the
+    per-batch moments over `batches`: each refresh forward starts from the
+    same base statistics, the batch's moments are recovered from the
+    momentum update (`recover_batch_moments`) and averaged. A momentum
+    walk over K batches would keep 0.9**K of the stale values."""
+    base = bn_stats(model)
+    acc, n = None, 0
+    for b in batches:
+        mb = recover_batch_moments(refresh_step(base, b), base)
+        acc = mb if acc is None else {k: acc[k] + mb[k] for k in acc}
+        n += 1
+    if n:
+        load_bn_stats(model, {k: v / n for k, v in acc.items()})
+
+
+def make_pool_refresh_step(model: torch.nn.Module):
+    """`refresh(stacked)`: `refresh_bn_stats` over every batch of a
+    stacked pool; eager and forward-only."""
+    step = make_bn_refresh_step(model)
+
+    def refresh(stacked: GraphBatch) -> None:
+        refresh_bn_stats(step, model, (pool_entry(stacked, i)
+                                       for i in range(pool_size(stacked))))
+
+    return refresh
+
+
+# ---------------------------------------------------------------------------
+# evaluation
+# ---------------------------------------------------------------------------
+
+_BN_MODES = ("running", "batch")
+
+
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: GraphBatch,
-              node_level: bool = True):
-    """(sum |err|, count) over real rows, with running BatchNorm
-    statistics, so a caller accumulates an exact dataset MAE across
-    fixed-shape batches."""
-    model.eval()
-    out = model(batch)
+              node_level: bool = True, bn_mode: str = "running"):
+    """(sum |err|, count) over real rows, so a caller accumulates an exact
+    dataset MAE across fixed-shape batches. `bn_mode="running"`
+    normalizes with the running statistics (torch `eval()`); "batch" with
+    the eval batch's own, leaving the running statistics untouched."""
+    if bn_mode not in _BN_MODES:
+        raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
+    if bn_mode == "batch":
+        with _batch_statistics(model):
+            out = model(batch)
+    else:
+        model.eval()
+        out = model(batch)
     mask = batch.node_mask if node_level else batch.graph_mask
     err = (out - batch.y).abs() * mask[:, None]
     return err.sum(), mask.sum() * out.shape[-1]
+
+
+def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
+                        bn_mode: str = "running"):
+    """`eval_pool(stacked) -> (sum |err|, count)` accumulated on the device
+    over every batch of a stacked pool; eager and forward-only."""
+
+    def eval_pool(stacked: GraphBatch):
+        total = count = None
+        for i in range(pool_size(stacked)):
+            s, c = eval_step(model, pool_entry(stacked, i), node_level,
+                             bn_mode)
+            total = s if total is None else total + s
+            count = c if count is None else count + c
+        return total, count
+
+    return eval_pool
+
+
+# ---------------------------------------------------------------------------
+# the pool step: one epoch over a stacked pool
+# ---------------------------------------------------------------------------
+
+
+def make_pool_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                         loss_fn, pool_like: GraphBatch):
+    """`pool_step(pool, order) -> losses`: one train step per index of
+    `order` (host integers) on batch `pool[order[i]]` of a stacked pool,
+    the counterpart of the JAX package's jitted scan over a pool. `losses`
+    is a (len(order),) tensor on the pool's device; reading it is the
+    caller's one wait per epoch.
+
+    On the CPU the steps run eagerly (`train_step`). On a CUDA device one
+    step (forward, backward, clip and Adam) is captured into a CUDA graph
+    over static batch buffers shaped like one entry of `pool_like`, and
+    each step copies its batch into those buffers (device to device) and
+    replays the graph. `opt` must be capturable
+    (`adam_with_plateau(..., capturable=True)`); pools of other shapes
+    are refused; a capture failure raises."""
+    if pool_like.graph_mask.device.type == "cpu":
+        def pool_step(pool: GraphBatch, order):
+            return torch.stack([
+                train_step(model, opt, pool_entry(pool, int(j)), loss_fn)
+                for j in order])
+
+        return pool_step
+    return _GraphedPoolStep(model, opt, loss_fn, pool_like)
+
+
+class _GraphedPoolStep:
+    """One train step captured into a CUDA graph, replayed per batch."""
+
+    WARMUP_STEPS = 3
+
+    def __init__(self, model, opt, loss_fn, pool_like: GraphBatch):
+        if not all(g.get("capturable") for g in opt.param_groups):
+            raise ValueError("the graphed pool step needs a capturable "
+                             "optimizer: adam_with_plateau(..., "
+                             "capturable=True)")
+        first = pool_entry(pool_like, 0)
+        self._static = dataclasses.replace(first, **{
+            k: torch.empty_like(v) for k, v in first.tensors().items()})
+        self.device = first.graph_mask.device
+        self._load(pool_like, 0)
+        # warm up on a side stream (allocator, cuBLAS workspaces, the
+        # optimizer's state, the kernels' scratch such as K1's counters),
+        # then put the model and optimizer back in place so the warm-up
+        # leaves the training trajectory as it was
+        snapshot = _snapshot(model, opt)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                train_step(model, opt, self._static, loss_fn)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        _restore_in_place(model, opt, snapshot)
+        # grads set to None: the captured backward allocates them from the
+        # graph's pool, at the same addresses in every replay
+        opt.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._loss = train_step(model, opt, self._static, loss_fn)
+
+    def _load(self, pool: GraphBatch, j: int) -> None:
+        for k, dst in self._static.tensors().items():
+            dst.copy_(getattr(pool, k)[j])
+
+    def _check(self, pool: GraphBatch) -> None:
+        want = {k: (tuple(v.shape), v.dtype, v.device)
+                for k, v in self._static.tensors().items()}
+        got = {k: (tuple(v.shape[1:]), v.dtype, v.device)
+               for k, v in pool.tensors().items()}
+        if got != want or (pool.nodes_per_graph, pool.edges_per_graph) != (
+                self._static.nodes_per_graph, self._static.edges_per_graph):
+            raise ValueError(
+                "the pool's batches differ in shape, type or device from the "
+                "captured step's; one graph serves only pools of one shape")
+
+    def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
+        self._check(pool)
+        losses = torch.empty(len(order), dtype=self._loss.dtype,
+                             device=self.device)
+        for i, j in enumerate(order):
+            self._load(pool, int(j))
+            self.graph.replay()
+            losses[i].copy_(self._loss)
+        return losses
+
+
+def _snapshot(model, opt) -> dict:
+    return dict(
+        tensors=[t.detach().clone() for t in _model_tensors(model)],
+        opt_state={p: {k: v.clone() for k, v in s.items()
+                       if isinstance(v, torch.Tensor)}
+                   for p, s in opt.state.items()},
+    )
+
+
+def _model_tensors(model):
+    return list(model.parameters()) + list(model.buffers())
+
+
+@torch.no_grad()
+def _restore_in_place(model, opt, snapshot) -> None:
+    for t, saved in zip(_model_tensors(model), snapshot["tensors"]):
+        t.copy_(saved)
+    for p, state in opt.state.items():
+        saved = snapshot["opt_state"].get(p)
+        for k, v in state.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            if saved is None:
+                v.zero_()  # state the warm-up created: Adam starts at 0
+            else:
+                v.copy_(saved[k])

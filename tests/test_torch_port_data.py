@@ -86,7 +86,8 @@ def test_synthetic_zinc_and_splits_equal():
             _assert_same_array(getattr(g, f), getattr(jg, f), f)
     jsplits, is_real = j_zinc_splits("/nonexistent", num_graphs=20, seed=1)
     assert not is_real
-    splits = zinc_splits(num_graphs=20, seed=1)
+    splits, is_real = zinc_splits("/nonexistent", num_graphs=20, seed=1)
+    assert not is_real
     for name in ("train", "val", "test"):
         assert len(splits[name]) == len(jsplits[name])
         for jg, g in zip(jsplits[name], splits[name]):

@@ -82,8 +82,25 @@ def test_slice_modules_are_walked():
     assert r.returncode == 0, r.stderr
     names = r.stdout.split()
     for mod in ("data.counting", "data.graphlets", "models.ppgn",
-                "ops.ppgn_pool", "ops.zemb_gather"):
+                "ops.ppgn_pool", "ops.zemb_gather", "data.prefetch",
+                "featurize.cache", "train.checkpoint", "utils.rundir",
+                "run_zinc", "run_graphcount"):
         assert f"escgnn_tpu_torch.{mod}" in names, mod
+
+
+def test_importing_the_twins_runs_nothing(tmp_path):
+    """Importing the driver twins (as the import walk and spawned
+    featurizer workers do) parses no arguments, prints nothing and writes
+    nothing."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run(
+        [sys.executable, "-c", "import escgnn_tpu_torch.run_zinc, "
+         "escgnn_tpu_torch.run_graphcount", "--epochs", "x"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout == ""
+    assert os.listdir(tmp_path) == []
 
 
 def test_ppgn_defaults_to_cuda_and_raises_without_it(no_card):
