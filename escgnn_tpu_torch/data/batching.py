@@ -7,10 +7,11 @@ permutation. The host arrays are bit-equal to the JAX batcher's; only
 the last step differs: `pad_and_batch` hands them over as tensors on the
 requested device.
 
-This package carries the parts of the JAX batcher that the flagship
-NestedGIN_eff path runs: `BatchSpec.from_graphs` / `BatchSpec.uniform`
-with the `width` and `dedup` encoding layouts, and `batch_iterator`. The
-flat layout, packed batches, the copy and k-set levels and named extras
+This package carries the parts of the JAX batcher that the
+NestedGIN_eff drivers run: `BatchSpec.from_graphs` / `BatchSpec.uniform`
+with the `width` and `dedup` encoding layouts, `batch_iterator`, and the
+generic node- and edge-aligned graph extras (QM9's `node_type`). The
+flat layout, packed batches, the copy and k-set levels and their extras
 wait for the slices that need them.
 """
 
@@ -22,8 +23,20 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from escgnn_tpu_torch.data.container import GraphBatch, GraphData
+from escgnn_tpu_torch.data.container import EXTRAS_PREFIX, GraphBatch, GraphData
 from escgnn_tpu_torch.device import resolve_device
+
+# extras that the JAX batcher folds into dedicated fields and budgets:
+# the ROADMAP queue that brings each family (k-set keys: 8.6)
+_STRUCTURAL_KEYS = {
+    "node_to_subgraph": "8.4", "num_subgraphs": "8.4",
+    "node_to_subgraph2": "8.4", "num_subgraphs2": "8.4",
+    "subgraph2_to_subgraph": "8.4", "center_idx": "8.4",
+    "node_to_original_node": "8.4", "num_original_nodes": "8.4",
+    "orig_adj": "8.4", "assign_2to3": "8.6", "num_assign_2to3": "8.6",
+    "node_valid": "8.4", "edge_valid": "8.4",
+    "attn_bias": "8.3", "pair_index": "8.3", "pair_label": "8.3",
+}
 
 # wire dtypes: the ESC bucket ids (< 1800) and counts (small ints) ship as
 # int16; ops cast on device
@@ -240,13 +253,12 @@ def _pad_rows(parts, lengths, budget, offsets):
 
 
 def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
-    """The padded host arrays of one batch, by `GraphBatch` field name
-    (bit-equal to the JAX batcher's on the same graphs and spec)."""
+    """The padded host arrays of one batch, by the flat names of
+    `GraphBatch.tensors()` (bit-equal to the JAX batcher's fields and
+    extras on the same graphs and spec)."""
     G = len(graphs)
     if not 0 < G <= spec.num_graphs:
         raise ValueError(f"{G} graphs for a {spec.num_graphs}-graph spec")
-    if any(g.extras for g in graphs):
-        raise NotImplementedError("graph extras are not batched yet")
     n_sizes = [g.num_nodes for g in graphs]
     e_sizes = [g.num_edges for g in graphs]
     uniform = spec.uniform_nodes > 0
@@ -332,7 +344,44 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
             fields["y"] = y
     if graphs[0].enc_offsets is not None and spec.enc_width > 0:
         fields.update(_batch_encoding(graphs, perms, edge_off, spec))
+    for k, v in _batch_named_extras(graphs, n_sizes, e_sizes, perms,
+                                    node_off, edge_off, spec).items():
+        fields[EXTRAS_PREFIX + k] = v
     return fields
+
+
+def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
+                        spec):
+    """Generic extras: node-aligned ones padded like x, edge-aligned ones
+    permuted like edge_attr; per-graph scalars (`num_*`) are skipped, as
+    the JAX batcher does. The copy-level, k-set, dense and pair extras
+    raise, naming their ROADMAP queue."""
+    out: dict = {}
+    ex0 = graphs[0].extras or {}
+    for key in ex0:
+        queue = ("8.6" if key.startswith(("kset", "num_kset"))
+                 else _STRUCTURAL_KEYS.get(key))
+        if queue:
+            raise NotImplementedError(
+                f"extras[{key!r}]: its batch fields are ROADMAP queue {queue}")
+    for key, v0 in ex0.items():
+        if key.startswith("num_"):
+            continue
+        v0 = np.asarray(v0)
+        if v0.ndim >= 1 and v0.shape[0] == graphs[0].num_nodes:
+            out[key] = _pad_rows([np.asarray(g.extras[key]) for g in graphs],
+                                 n_sizes, spec.num_nodes, node_off)
+        elif v0.ndim >= 1 and v0.shape[0] == graphs[0].num_edges:
+            out[key] = _pad_rows(
+                [np.asarray(g.extras[key])[perms[i]]
+                 for i, g in enumerate(graphs)],
+                e_sizes, spec.num_edges, edge_off)
+        else:
+            raise ValueError(
+                f"extras[{key!r}] has no batching rule "
+                f"(shape {v0.shape}, graph has {graphs[0].num_nodes} nodes/"
+                f"{graphs[0].num_edges} edges)")
+    return out
 
 
 def pad_and_batch(
@@ -361,8 +410,7 @@ def batch_from_arrays(arrays: dict, spec: BatchSpec, device="cuda",
     return GraphBatch(
         nodes_per_graph=spec.uniform_nodes or None,
         edges_per_graph=spec.uniform_edges or None,
-        **{k: put(v) for k, v in arrays.items()},
-    )
+    ).with_tensors({k: put(v) for k, v in arrays.items()})
 
 
 def batch_iterator(

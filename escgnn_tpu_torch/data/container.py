@@ -16,6 +16,10 @@ import torch
 
 from escgnn_tpu_torch.device import resolve_device
 
+# flat name prefix of an extra in `GraphBatch.tensors()` and in the host
+# arrays of `data/batching.py`
+EXTRAS_PREFIX = "extras."
+
 
 @dataclasses.dataclass
 class GraphData:
@@ -28,8 +32,8 @@ class GraphData:
 
     ESC structural encoding (ragged CSR over edges): `enc_idx`/`enc_cnt`
     are flat (total_nnz,) arrays and `enc_offsets` (E+1,) delimits each
-    edge's run. `extras` holds named per-graph annotations; the batcher
-    of this package takes graphs without them.
+    edge's run. `extras` holds named per-graph annotations (such as QM9's
+    `node_type`); the batcher carries the node- and edge-aligned ones.
     """
 
     num_nodes: int
@@ -59,7 +63,14 @@ class GraphBatch:
     `enc_edge_row`, the rows' real-edge multiplicities `enc_row_weight`,
     the sorted-CSR view `enc_edge_perm`/`enc_row_sorted` (the input of the
     sorted-segment-sum kernel), the compact bucket ids `enc_bucket_ids`
-    and, where it fits, the host count matrix `enc_countmat`.
+    and, where it fits, the host count matrix `enc_countmat`. `extras`
+    maps names to tensors padded like `x` (node-aligned) or permuted like
+    `edge_attr` (edge-aligned).
+
+    `tensors()` lists every tensor by a flat name (an extra as
+    `extras.<name>`) and `with_tensors` builds the batch back from such a
+    mapping, so copies, stacks and pool entries carry the extras with the
+    fields.
     """
 
     x: Optional[torch.Tensor] = None
@@ -81,24 +92,37 @@ class GraphBatch:
     enc_row_sorted: Optional[torch.Tensor] = None
     enc_bucket_ids: Optional[torch.Tensor] = None
     enc_countmat: Optional[torch.Tensor] = None
+    extras: Optional[dict] = None
     # uniform layout (static sizes): node id g*nodes_per_graph + i, edge
     # id g*edges_per_graph + k
     nodes_per_graph: Optional[int] = None
     edges_per_graph: Optional[int] = None
 
     def tensors(self) -> dict:
-        """The tensor fields that are set, by name."""
-        return {
+        """The tensors that are set, by flat name: fields by their name,
+        extras as `extras.<name>`."""
+        out = {
             f.name: getattr(self, f.name)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
+        for k, v in (self.extras or {}).items():
+            out[EXTRAS_PREFIX + k] = v
+        return out
+
+    def with_tensors(self, tensors: dict) -> "GraphBatch":
+        """This batch with every tensor replaced from `tensors`, a mapping
+        shaped like `tensors()` (the extras are replaced as a whole)."""
+        fields = {k: v for k, v in tensors.items()
+                  if not k.startswith(EXTRAS_PREFIX)}
+        extras = {k[len(EXTRAS_PREFIX):]: v for k, v in tensors.items()
+                  if k.startswith(EXTRAS_PREFIX)}
+        return dataclasses.replace(self, extras=extras or None, **fields)
 
     def to(self, device="cuda") -> "GraphBatch":
         device = resolve_device(device)
-        return dataclasses.replace(
-            self, **{k: v.to(device) for k, v in self.tensors().items()}
-        )
+        return self.with_tensors(
+            {k: v.to(device) for k, v in self.tensors().items()})
 
     @property
     def num_nodes(self) -> int:

@@ -17,7 +17,6 @@
 
 from __future__ import annotations
 
-import dataclasses
 import queue
 import threading
 from typing import Iterator, Optional, Sequence
@@ -132,8 +131,8 @@ def pool_size(stacked: GraphBatch) -> int:
 
 def pool_entry(stacked: GraphBatch, i: int) -> GraphBatch:
     """Batch `i` of a stacked pool (views, no copy)."""
-    return dataclasses.replace(
-        stacked, **{k: v[i] for k, v in stacked.tensors().items()})
+    return stacked.with_tensors(
+        {k: v[i] for k, v in stacked.tensors().items()})
 
 
 def stacked_batch_pools(

@@ -13,6 +13,7 @@ a bf16 activation times an f32 weight computes in f32 (`TorchDense`,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -63,11 +64,18 @@ class TorchEmbed(nn.Embedding):
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over rows with a validity mask or float row weights.
 
-    Normalizes with the biased (weighted) batch variance in training and
-    updates the running statistics with the unbiased variance, momentum
-    0.1, eps 1e-5, affine. Float weights (row multiplicities) make BN
-    over deduplicated rows equal BN over the expanded row set. Statistics
-    and normalization run in f32; the output has the input's dtype.
+    Its statistics mode is its own flag, `use_running_average` (flax's
+    argument of that name), not `nn.Module.training`: False normalizes
+    with the biased (weighted) batch variance and updates the running
+    statistics with the unbiased variance, momentum 0.1, eps 1e-5,
+    affine; True normalizes with the running statistics. `train(mode)`
+    sets the flag to `not mode`, as a default; `set_use_running_average`
+    and `bn_statistics` set it on every BN of a model whatever its
+    `training` (a batch-statistics pass in `eval()`, as JAX runs the BN
+    refresh with `deterministic=True`). Float weights (row
+    multiplicities) make BN over deduplicated rows equal BN over the
+    expanded row set. Statistics and normalization run in f32; the output
+    has the input's dtype.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -75,14 +83,20 @@ class MaskedBatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.use_running_average = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.use_running_average = not mode
+        return self
+
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         xf = x.to(torch.float32)
-        if not self.training:
+        if self.use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
             if mask is None:
@@ -103,6 +117,30 @@ class MaskedBatchNorm(nn.Module):
                     (1 - mom) * self.running_var + mom * unbiased)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_use_running_average(model: nn.Module, flag: bool) -> list:
+    """Set the statistics mode of every `MaskedBatchNorm` in `model`,
+    leaving `model.training` as it is; returns the previous modes, in
+    `model.modules()` order."""
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    prev = [m.use_running_average for m in bns]
+    for m in bns:
+        m.use_running_average = flag
+    return prev
+
+
+@contextlib.contextmanager
+def bn_statistics(model: nn.Module, use_running_average: bool):
+    """Every BN of `model` in one statistics mode inside the block; each
+    BN's own mode is put back on exit."""
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    prev = set_use_running_average(model, use_running_average)
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, prev):
+            m.use_running_average = flag
 
 
 class MLP(nn.Module):

@@ -5,15 +5,22 @@ Variants carried by this package:
   * counting (node-level, ReLU, x_embedding prepended to the JK concat);
   * ZINC / flagship (graph-level, ELU, node/edge type embeddings, z_emb
     concatenated with an edge-type embedding, add-pool), with the conv
-    stacks in bf16 under `compute_dtype="bfloat16"`.
+    stacks in bf16 under `compute_dtype="bfloat16"`, and its node-level
+    form (ZINC cycle counting, `graph_pred=False`);
+  * QM9 (graph-level, mean-pool): x = [x ‖ pos] plus an additive
+    node-type embedding of `extras["node_type"]`, z_emb concatenated
+    with the continuous edge_attr;
+  * the expressiveness checks (SR25, EXP, CSL): the width layout, add
+    pool, classification heads.
 
 The structural embedding path: on the dedup layout the z reduce and the
 z MLP run on the batch's unique histogram rows with multiplicity-weighted
 BatchNorm, then one gather expands them to edges (`ops/zemb.py`); the
 result is the edge feature of every GINE layer.
 
-BatchNorm uses batch statistics in `train()` mode and the running
-statistics in `eval()` mode (flax's `use_running_average`).
+BatchNorm's statistics mode is its own flag (flax's
+`use_running_average`, `models/layers.py`), which `train()` / `eval()`
+set by default.
 """
 
 from __future__ import annotations
@@ -54,12 +61,13 @@ class NestedGINEffConfig:
     node_embed_dim: int = 32
     edge_embed_vocab: int = 0  # >0: concat edge-type embedding onto z_emb
     edge_embed_dim: int = 32
-    # QM9 variant and sharded execution: kept for parity with the JAX
-    # config, not ported yet (they raise)
-    concat_pos: bool = False
-    node_add_embed_vocab: int = 0
-    edge_float_attr: bool = False
+    # QM9 variant (reference qm9_models.py:25-139):
+    concat_pos: bool = False  # x = [x ‖ pos]
+    node_add_embed_vocab: int = 0  # >0: x += Embedding(vocab)(node_type)
+    edge_float_attr: bool = False  # concat continuous edge_attr onto z_emb
     compute_dtype: str = "float32"  # float32 | bfloat16 for conv stacks
+    # sharded execution: kept for parity with the JAX config, not ported
+    # yet (they raise)
     edge_shard_axis: Optional[str] = None
     halo_axis: Optional[str] = None
 
@@ -69,9 +77,6 @@ def _check_ported(cfg: NestedGINEffConfig):
         "dropout > 0 (needs the width layout)": cfg.dropout > 0,
         "halo_axis": cfg.halo_axis is not None,
         "edge_shard_axis": cfg.edge_shard_axis is not None,
-        "concat_pos": cfg.concat_pos,
-        "node_add_embed_vocab": bool(cfg.node_add_embed_vocab),
-        "edge_float_attr": cfg.edge_float_attr,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -86,12 +91,15 @@ _ACTS = {"relu": F.relu, "elu": F.elu}
 
 class NestedGINEff(nn.Module):
     """`in_dim` is the width of `batch.x` (the x_embedding input and, for
-    models without a node-type vocabulary, the first conv's input). The
+    models without a node-type vocabulary, the first conv's input);
+    `edge_attr_dim` the width of `batch.edge_attr` under
+    `edge_float_attr` (flax reads both from the first batch). The
     parameters are drawn on the CPU from `generator` (seed 0 when None)
     and then moved to `device`."""
 
     def __init__(self, cfg: NestedGINEffConfig, in_dim: int = 1,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 edge_attr_dim: int = 0):
         super().__init__()
         _check_ported(cfg)
         device = resolve_device(device)
@@ -106,6 +114,16 @@ class NestedGINEff(nn.Module):
             self.node_type_embedding = TorchEmbed(
                 cfg.node_embed_vocab, cfg.node_embed_dim, generator=g)
             x_dim = cfg.node_embed_dim
+        if cfg.concat_pos:
+            x_dim += 3
+        if cfg.node_add_embed_vocab:
+            # flax's name, shared with the vocabulary embedding above (a
+            # config sets one of the two)
+            if cfg.node_embed_vocab:
+                raise ValueError("node_embed_vocab and node_add_embed_vocab "
+                                 "both name node_type_embedding")
+            self.node_type_embedding = TorchEmbed(
+                cfg.node_add_embed_vocab, x_dim, generator=g)
         self.z_initial = nn.Parameter(
             torch.empty(cfg.z_dim, H).normal_(0.0, 1.0, generator=g))
         self.z_embedding = MLP(H, (H,), self.act, pre_act=True, generator=g)
@@ -114,6 +132,11 @@ class NestedGINEff(nn.Module):
             self.edge_type_embedding = TorchEmbed(
                 cfg.edge_embed_vocab, cfg.edge_embed_dim, generator=g)
             edge_dim += cfg.edge_embed_dim
+        if cfg.edge_float_attr:
+            if edge_attr_dim <= 0:
+                raise ValueError("edge_float_attr needs edge_attr_dim, the "
+                                 "width of batch.edge_attr")
+            edge_dim += edge_attr_dim
         jk_dim = H * cfg.num_layers
         if cfg.use_x_embedding_jk:
             self.x_embedding = MLP(in_dim, (H, H), self.act, generator=g)
@@ -141,6 +164,12 @@ class NestedGINEff(nn.Module):
         if cfg.node_embed_vocab:
             x = self.node_type_embedding(x.reshape(x.shape[0]))
         x = x.to(torch.float32)
+        if cfg.concat_pos:
+            x = torch.cat([x, batch.pos.to(torch.float32)], dim=-1)
+        if cfg.node_add_embed_vocab:
+            node_type = batch.extras["node_type"]
+            x = x + self.node_type_embedding(
+                node_type.reshape(node_type.shape[0]))
 
         # --- per-edge structural embedding ---
         u = zemb_unique_rows(self.z_initial, batch)
@@ -156,6 +185,9 @@ class NestedGINEff(nn.Module):
             z_emb = torch.cat(
                 [z_emb, self.edge_type_embedding(ea.reshape(ea.shape[0]))],
                 dim=-1)
+        if cfg.edge_float_attr:
+            ea = batch.edge_attr.to(torch.float32)
+            z_emb = torch.cat([z_emb, ea.reshape(ea.shape[0], -1)], dim=-1)
 
         cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 

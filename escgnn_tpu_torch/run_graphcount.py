@@ -18,9 +18,7 @@ stacked batch pool. The CPU runs only with `--device cpu`.
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -33,12 +31,7 @@ from escgnn_tpu_torch.data.counting import (
     generate_counting_graphs,
     normalize_targets,
 )
-from escgnn_tpu_torch.data.prefetch import (
-    materialized_batches,
-    prefetched_batches,
-    stack_split,
-    stacked_batch_pools,
-)
+from escgnn_tpu_torch.data.prefetch import materialized_batches
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
@@ -53,20 +46,9 @@ from escgnn_tpu_torch.train.checkpoint import (
     load_model_tree,
     model_tree,
 )
-from escgnn_tpu_torch.train.loop import (
-    PlateauScheduler,
-    adam_with_plateau,
-    get_learning_rate,
-    l1_node_loss,
-    make_pool_eval_step,
-    make_pool_refresh_step,
-    make_pool_train_step,
-    set_learning_rate,
-    train_step,
-)
-from escgnn_tpu_torch.utils.rundir import backup_run
-
-POOL_BYTES = 4 * 2**30  # the stacked train pools' budget on the card
+from escgnn_tpu_torch.train.fit import fit
+from escgnn_tpu_torch.train.loop import adam_with_plateau, l1_node_loss
+from escgnn_tpu_torch.utils.rundir import log_line, start_run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_seed", type=int, default=0)
     p.add_argument("--num_graphs", type=int, default=1500)
     p.add_argument("--num_workers", type=int, default=0,
-                   help="featurizer processes (spawned)")
+                   help="featurizer processes (forked; each sets one "
+                   "OpenMP thread)")
     p.add_argument("--data_dir", default="data")
     p.add_argument("--res_dir", default=None)
     p.add_argument("--compute_dtype", default="float32",
@@ -192,12 +175,6 @@ def build_model(args, spec: BatchSpec, in_dim: int, device):
     ), in_dim=in_dim, device=device, generator=gen)
 
 
-def _log(log_path: str, line: str) -> None:
-    print(line, flush=True)
-    with open(log_path, "a") as f:
-        f.write(line + "\n")
-
-
 def main(argv=None) -> dict:
     """Train and evaluate; returns the run's numbers (best val/test MAE
     and one record per epoch) for callers such as the smoke run."""
@@ -208,14 +185,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    res_dir = args.res_dir or os.path.join(
-        "results", args.dataset + "_" + time.strftime("%Y%m%d%H%M%S"))
-    os.makedirs(res_dir, exist_ok=True)
-    with open(os.path.join(res_dir, "config.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    backup_run(res_dir, os.path.abspath(__file__), argv=[
-        "-m", "escgnn_tpu_torch.run_graphcount",
-        *(sys.argv[1:] if argv is None else argv)])
+    res_dir = start_run(args, "escgnn_tpu_torch.run_graphcount",
+                        args.dataset, __file__, argv)
 
     t0 = time.time()
     splits = build_datasets(args)
@@ -247,69 +218,12 @@ def main(argv=None) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"params: {n_params / 1e6:.2f}M")
 
-    sched = PlateauScheduler(factor=args.lr_decay_factor,
-                             patience=args.patience)
     ckpt = CheckpointManager(os.path.join(res_dir, "ckpt"), max_to_keep=3)
-    if not args.reshuffle_membership:
-        pools, num_train_batches = stacked_batch_pools(
-            splits["train"], spec, k=args.membership_pools, seed=args.seed,
-            max_total_bytes=POOL_BYTES, device=device)
-        pool_train_step = make_pool_train_step(model, opt, l1_node_loss,
-                                               pools[0])
-    val_stack = stack_split(splits["val"], spec, device)
-    test_stack = stack_split(splits["test"], spec, device)
-    refresh_stack = stack_split(splits["train"][: 8 * args.batch_size], spec,
-                                device)
-    eval_pool = make_pool_eval_step(model, node_level=True,
-                                    bn_mode=args.bn_eval)
-    refresh_pool = make_pool_refresh_step(model)
-
-    def evaluate(stacked):
-        e, c = eval_pool(stacked)
-        return float(e) / max(float(c), 1.0) * std  # MAE in original units
-
-    data_rng = np.random.default_rng(args.seed)
-    best_val, best_test = float("inf"), float("inf")
     log_path = os.path.join(res_dir, "log.txt")
-    epochs = []
-    for epoch in range(1, args.epochs + 1):
-        t_ep = time.time()
-        if args.reshuffle_membership:
-            ep_losses = torch.stack([
-                train_step(model, opt, b, l1_node_loss)
-                for b in prefetched_batches(splits["train"], spec,
-                                            shuffle=True, rng=data_rng,
-                                            device=device)])
-        else:
-            pool = pools[(epoch - 1) % len(pools)]
-            ep_losses = pool_train_step(
-                pool, data_rng.permutation(num_train_batches))
-        train_loss = float(ep_losses.mean())  # the epoch's one wait
-        train_s = time.time() - t_ep
-        if args.bn_eval == "running":
-            # re-estimate BN running statistics on frozen params
-            refresh_pool(refresh_stack)
-        val_mae = evaluate(val_stack)
-        lr = get_learning_rate(opt)
-        new_lr = sched.step(val_mae, lr)
-        if new_lr != lr:
-            set_learning_rate(opt, new_lr)
-        line = (f"epoch {epoch:03d} lr {lr:.6f} loss {train_loss:.5f} "
-                f"val MAE {val_mae:.5f}")
-        test_mae = None
-        if val_mae < best_val:
-            best_val = val_mae
-            best_test = test_mae = evaluate(test_stack)
-            line += f" test MAE {best_test:.5f} *"
-            ckpt.save(epoch, model_tree(model))
-        seconds = time.time() - t_ep
-        line += f" ({seconds:.1f}s)"
-        _log(log_path, line)
-        epochs.append(dict(epoch=epoch, lr=lr, loss=train_loss,
-                           val_mae=val_mae, test_mae=test_mae,
-                           seconds=seconds, train_seconds=train_s,
-                           steps=len(ep_losses)))
-
+    res = fit(args, model, opt, l1_node_loss, splits, spec, device,
+              node_level=True, scale=std, log_path=log_path,
+              on_best=lambda epoch: ckpt.save(epoch, model_tree(model)))
+    best_val, best_test = res["best_val"], res["best_test"]
     print(f"best val MAE {best_val:.5f}  test MAE {best_test:.5f} "
           f"(normalized: {best_test / std:.5f})")
 
@@ -328,11 +242,10 @@ def main(argv=None) -> dict:
                     errs.setdefault(int(round(yt)), []).append(abs(yp - yt))
         print("count  n      MAE")
         for cval in sorted(errs):
-            _log(log_path, f"{cval:5d} {len(errs[cval]):6d} "
-                           f"{float(np.mean(errs[cval])):.5f}")
+            log_line(log_path, f"{cval:5d} {len(errs[cval]):6d} "
+                               f"{float(np.mean(errs[cval])):.5f}")
     ckpt.close()
-    return dict(best_val=best_val, best_test=best_test, epochs=epochs,
-                mean=mean, std=std, res_dir=res_dir, spec=spec,
+    return dict(res, mean=mean, std=std, res_dir=res_dir, spec=spec,
                 data_seconds=data_seconds)
 
 

@@ -1,20 +1,28 @@
 """Training loop building blocks (counterpart of `escgnn_tpu/train/loop.py`).
 
-Adam + L1 loss + ReduceLROnPlateau, as PyTorch that updates the model in
-place:
+Adam + L1/MSE/CE losses + ReduceLROnPlateau, as PyTorch that updates the
+model in place:
   * `train_step`: forward (BatchNorm in batch-statistics mode),
     backward, one Adam update (with optax's global-norm clip when the
     optimizer has one);
   * `make_pool_train_step`: a whole epoch over a device-resident stacked
     pool (`data/prefetch.py`) in a given order, the counterpart of the
-    JAX package's one jitted `lax.scan` per epoch. On a CUDA device one
-    train step is captured into a CUDA graph and replayed per batch;
+    JAX package's one jitted `lax.scan` per epoch. Each step copies its
+    batch into static buffers; on a CUDA device one train step over those
+    buffers is captured into a CUDA graph and replayed per batch;
   * `eval_step` and `make_pool_eval_step`: (sum |err|, count) with the
-    running BatchNorm statistics (`bn_mode="running"`, torch's `eval()`)
-    or the eval batch's own (`bn_mode="batch"`, running statistics left
-    as they were);
+    running BatchNorm statistics (`bn_mode="running"`) or the eval
+    batch's own (`bn_mode="batch"`, running statistics left as they
+    were), the model in `eval()` either way;
+  * `make_accuracy_step` and `make_pergraph_correct_step`: classification
+    eval with the running statistics, returning device tensors;
   * `refresh_bn_stats` and `make_pool_refresh_step`: the running
     statistics re-estimated as the exact average of per-batch moments.
+
+BatchNorm's statistics mode is set on its own (`models/layers.py`
+`set_use_running_average`, `bn_statistics`), apart from `model.training`:
+every forward that JAX runs with `deterministic=True` runs here in
+`eval()`, whichever statistics its BatchNorm uses.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.data.prefetch import pool_entry, pool_size
+from escgnn_tpu_torch.models.layers import bn_statistics, set_use_running_average
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -126,16 +136,26 @@ def l1_graph_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     return (err * m).sum() / (m.sum() * err.shape[-1]).clamp_min(1.0)
 
 
+def ce_graph_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Masked softmax cross-entropy over real graphs (classification)."""
+    labels = batch.y.reshape(-1).long()
+    nll = -F.log_softmax(out, dim=-1).gather(1, labels[:, None])[:, 0]
+    m = batch.graph_mask.to(nll.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
 def train_step(
     model: torch.nn.Module,
     opt: torch.optim.Optimizer,
     batch: GraphBatch,
     loss_fn: Callable[[torch.Tensor, GraphBatch], torch.Tensor],
 ) -> torch.Tensor:
-    """One step: forward in train mode (BatchNorm running statistics are
-    updated), backward, optimizer update. Returns the loss (computed
-    before the update) as a detached tensor, without synchronizing."""
+    """One step: forward in train mode with BatchNorm on batch statistics
+    (the running statistics are updated), backward, optimizer update.
+    Returns the loss (computed before the update) as a detached tensor,
+    without synchronizing."""
     model.train()
+    set_use_running_average(model, False)
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(model(batch), batch)
     loss.backward()
@@ -176,23 +196,34 @@ def recover_batch_moments(new_stats: dict, old_stats: dict) -> dict:
 
 @contextlib.contextmanager
 def _batch_statistics(model: torch.nn.Module):
-    """BatchNorm normalizes with each batch's own statistics; the running
-    statistics are put back as they were on exit."""
+    """The model in `eval()` (JAX's `deterministic=True`) with BatchNorm
+    on each batch's own statistics; the running statistics and the
+    model's mode are put back as they were on exit."""
     saved = bn_stats(model)
     was_training = model.training
-    model.train()
+    model.eval()
     try:
-        yield
+        with bn_statistics(model, use_running_average=False):
+            yield
     finally:
         load_bn_stats(model, saved)
         model.train(was_training)
 
 
+@contextlib.contextmanager
+def running_statistics(model: torch.nn.Module):
+    """The model in `eval()` with BatchNorm on its running statistics
+    (JAX's `deterministic=True, use_running_average=True`)."""
+    model.eval()
+    with bn_statistics(model, use_running_average=True):
+        yield
+
+
 def make_bn_refresh_step(model: torch.nn.Module):
     """`refresh(base_stats, batch) -> stats`: the running statistics one
-    train-mode forward over `batch` leaves when it starts from
-    `base_stats` (parameters untouched; the model's statistics are put
-    back afterwards).
+    batch-statistics forward (model in `eval()`) over `batch` leaves when
+    it starts from `base_stats` (parameters untouched; the model's
+    statistics are put back afterwards).
 
     Why refresh: with trained embedding tables feeding pre-activation BN
     (the z_embedding path), activation scales move faster than the
@@ -249,15 +280,13 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
               node_level: bool = True, bn_mode: str = "running"):
     """(sum |err|, count) over real rows, so a caller accumulates an exact
     dataset MAE across fixed-shape batches. `bn_mode="running"`
-    normalizes with the running statistics (torch `eval()`); "batch" with
-    the eval batch's own, leaving the running statistics untouched."""
+    normalizes with the running statistics; "batch" with the eval batch's
+    own, leaving the running statistics untouched. The model is in
+    `eval()` either way."""
     if bn_mode not in _BN_MODES:
         raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
-    if bn_mode == "batch":
-        with _batch_statistics(model):
-            out = model(batch)
-    else:
-        model.eval()
+    with (_batch_statistics(model) if bn_mode == "batch"
+          else running_statistics(model)):
         out = model(batch)
     mask = batch.node_mask if node_level else batch.graph_mask
     err = (out - batch.y).abs() * mask[:, None]
@@ -281,6 +310,35 @@ def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
     return eval_pool
 
 
+def make_accuracy_step(model: torch.nn.Module):
+    """`acc_step(batch) -> (num_correct, num_real)`: classification eval
+    with the running statistics, as device tensors (the caller reads them
+    once per batch)."""
+
+    @torch.no_grad()
+    def acc_step(batch: GraphBatch):
+        with running_statistics(model):
+            pred = model(batch).argmax(dim=-1)
+        correct = (pred == batch.y.reshape(-1).long()) & batch.graph_mask
+        return correct.sum(), batch.graph_mask.sum()
+
+    return acc_step
+
+
+def make_pergraph_correct_step(model: torch.nn.Module):
+    """`step(batch) -> (correct (G,) bool, graph_mask)`: per-graph
+    correctness with the running statistics, the building block of the
+    majority-vote eval (device tensors)."""
+
+    @torch.no_grad()
+    def step(batch: GraphBatch):
+        with running_statistics(model):
+            pred = model(batch).argmax(dim=-1)
+        return pred == batch.y.reshape(-1).long(), batch.graph_mask
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # the pool step: one epoch over a stacked pool
 # ---------------------------------------------------------------------------
@@ -294,24 +352,64 @@ def make_pool_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     is a (len(order),) tensor on the pool's device; reading it is the
     caller's one wait per epoch.
 
-    On the CPU the steps run eagerly (`train_step`). On a CUDA device one
-    step (forward, backward, clip and Adam) is captured into a CUDA graph
-    over static batch buffers shaped like one entry of `pool_like`, and
-    each step copies its batch into those buffers (device to device) and
-    replays the graph. `opt` must be capturable
-    (`adam_with_plateau(..., capturable=True)`); pools of other shapes
-    are refused; a capture failure raises."""
+    Each step copies its batch (fields and extras) into static buffers
+    shaped like one entry of `pool_like`; pools of other shapes are
+    refused. On the CPU the step over those buffers runs eagerly
+    (`train_step`). On a CUDA device it is captured into a CUDA graph
+    (forward, backward, clip and Adam) and replayed per batch, the copies
+    device to device. `opt` must then be capturable
+    (`adam_with_plateau(..., capturable=True)`); a capture failure
+    raises."""
     if pool_like.graph_mask.device.type == "cpu":
-        def pool_step(pool: GraphBatch, order):
-            return torch.stack([
-                train_step(model, opt, pool_entry(pool, int(j)), loss_fn)
-                for j in order])
-
-        return pool_step
+        return _EagerPoolStep(model, opt, loss_fn, pool_like)
     return _GraphedPoolStep(model, opt, loss_fn, pool_like)
 
 
-class _GraphedPoolStep:
+class _PoolBuffers:
+    """Static batch buffers shaped like one entry of a stacked pool."""
+
+    def __init__(self, pool_like: GraphBatch):
+        first = pool_entry(pool_like, 0)
+        self.static = first.with_tensors(
+            {k: torch.empty_like(v) for k, v in first.tensors().items()})
+        self.device = first.graph_mask.device
+        self.load(pool_like, 0)
+
+    def load(self, pool: GraphBatch, j: int) -> None:
+        src = pool.tensors()
+        for k, dst in self.static.tensors().items():
+            dst.copy_(src[k][j])
+
+    def check(self, pool: GraphBatch) -> None:
+        want = {k: (tuple(v.shape), v.dtype, v.device)
+                for k, v in self.static.tensors().items()}
+        got = {k: (tuple(v.shape[1:]), v.dtype, v.device)
+               for k, v in pool.tensors().items()}
+        if got != want or (pool.nodes_per_graph, pool.edges_per_graph) != (
+                self.static.nodes_per_graph, self.static.edges_per_graph):
+            raise ValueError(
+                "the pool's batches differ in shape, type or device from the "
+                "step's buffers; one pool step serves only pools of one shape")
+
+
+class _EagerPoolStep(_PoolBuffers):
+    """The pool step on the CPU: eager train steps over the buffers."""
+
+    def __init__(self, model, opt, loss_fn, pool_like: GraphBatch):
+        super().__init__(pool_like)
+        self.model, self.opt, self.loss_fn = model, opt, loss_fn
+
+    def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
+        self.check(pool)
+        losses = []
+        for j in order:
+            self.load(pool, int(j))
+            losses.append(train_step(self.model, self.opt, self.static,
+                                     self.loss_fn))
+        return torch.stack(losses)
+
+
+class _GraphedPoolStep(_PoolBuffers):
     """One train step captured into a CUDA graph, replayed per batch."""
 
     WARMUP_STEPS = 3
@@ -321,11 +419,7 @@ class _GraphedPoolStep:
             raise ValueError("the graphed pool step needs a capturable "
                              "optimizer: adam_with_plateau(..., "
                              "capturable=True)")
-        first = pool_entry(pool_like, 0)
-        self._static = dataclasses.replace(first, **{
-            k: torch.empty_like(v) for k, v in first.tensors().items()})
-        self.device = first.graph_mask.device
-        self._load(pool_like, 0)
+        super().__init__(pool_like)
         # warm up on a side stream (allocator, cuBLAS workspaces, the
         # optimizer's state, the kernels' scratch such as K1's counters),
         # then put the model and optimizer back in place so the warm-up
@@ -335,7 +429,7 @@ class _GraphedPoolStep:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP_STEPS):
-                train_step(model, opt, self._static, loss_fn)
+                train_step(model, opt, self.static, loss_fn)
         torch.cuda.current_stream(self.device).wait_stream(side)
         _restore_in_place(model, opt, snapshot)
         # grads set to None: the captured backward allocates them from the
@@ -343,29 +437,14 @@ class _GraphedPoolStep:
         opt.zero_grad(set_to_none=True)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self._loss = train_step(model, opt, self._static, loss_fn)
-
-    def _load(self, pool: GraphBatch, j: int) -> None:
-        for k, dst in self._static.tensors().items():
-            dst.copy_(getattr(pool, k)[j])
-
-    def _check(self, pool: GraphBatch) -> None:
-        want = {k: (tuple(v.shape), v.dtype, v.device)
-                for k, v in self._static.tensors().items()}
-        got = {k: (tuple(v.shape[1:]), v.dtype, v.device)
-               for k, v in pool.tensors().items()}
-        if got != want or (pool.nodes_per_graph, pool.edges_per_graph) != (
-                self._static.nodes_per_graph, self._static.edges_per_graph):
-            raise ValueError(
-                "the pool's batches differ in shape, type or device from the "
-                "captured step's; one graph serves only pools of one shape")
+            self._loss = train_step(model, opt, self.static, loss_fn)
 
     def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
-        self._check(pool)
+        self.check(pool)
         losses = torch.empty(len(order), dtype=self._loss.dtype,
                              device=self.device)
         for i, j in enumerate(order):
-            self._load(pool, int(j))
+            self.load(pool, int(j))
             self.graph.replay()
             losses[i].copy_(self._loss)
         return losses

@@ -1,8 +1,10 @@
-"""The driver twins `escgnn_tpu_torch.run_zinc` and
-`escgnn_tpu_torch.run_graphcount`, run on the CPU at a tiny size (40
-graphs, hidden 16, 2 layers, batch 8, 2 epochs) in temporary
-directories: the files they write, their epoch lines in the JAX drivers'
-format, the warm start and PPGN_eff, and the unported flags."""
+"""The driver twins, run on the CPU at a tiny size in temporary
+directories: `run_zinc`, `run_graphcount`, `run_zinc_cycle` and `run_qm9`
+at 40 graphs, hidden 16, 2 layers, batch 8, 2 epochs (the files they
+write, their epoch lines in the JAX drivers' format, the warm start and
+PPGN_eff); `run_sr`, `run_csl` and `run_exp` at the sizes named in their
+tests, their result lines in the JAX drivers' format; the unported
+flags; the default device."""
 
 import json
 import os
@@ -11,7 +13,15 @@ import re
 import pytest
 import torch
 
-from escgnn_tpu_torch import run_graphcount, run_zinc
+from escgnn_tpu_torch import (
+    run_csl,
+    run_exp,
+    run_graphcount,
+    run_qm9,
+    run_sr,
+    run_zinc,
+    run_zinc_cycle,
+)
 
 TINY = ["--num_graphs", "40", "--hidden", "16", "--layers", "2",
         "--batch_size", "8", "--epochs", "2", "--num_workers", "0",
@@ -103,6 +113,82 @@ def test_run_graphcount_twin_ckpt_warm_start_and_ppgn(tmp_path, capsys):
              str(tmp_path / "empty"), res="none")
 
 
+def test_run_zinc_cycle_twin(tmp_path, capsys):
+    """Node-level targets: 32 train graphs in 4 steps, the val MAE over
+    real nodes in cycle counts. (The JAX driver has no --data_dir: it
+    caches nothing.)"""
+    res_dir = tmp_path / "res"
+    out = run_zinc_cycle.main(TINY + ["--res_dir", str(res_dir)])
+    _check_run(out, res_dir, capsys)
+    assert out["spec"].y_is_node_level
+    assert (res_dir / "cmd_input.txt").read_text().startswith(
+        "python -m escgnn_tpu_torch.run_zinc_cycle --num_graphs 40")
+
+
+def test_run_qm9_twin(tmp_path, capsys):
+    """Synthetic QM9 (no gdb9.sdf under --data_dir): the 10/10/80 split
+    leaves 32 train graphs in 4 steps; MAE in the target's units."""
+    out, res_dir = _run(run_qm9.main, tmp_path)
+    _check_run(out, res_dir, capsys)
+    assert not out["is_real"] and out["conversion"] == 1.0
+    out2, _ = _run(run_qm9.main, tmp_path, "--target", "2",
+                   "--epochs", "1", "--reshuffle_membership", res="t2")
+    assert out2["conversion"] == pytest.approx(27.2113825435)
+
+
+@pytest.fixture
+def no_fork(monkeypatch):
+    """The expressiveness twins featurize with the JAX drivers' two
+    forked workers; this process has JAX loaded, so the tests keep the
+    featurizer in process."""
+    for twin in (run_sr, run_csl, run_exp):
+        monkeypatch.setattr(twin, "FEATURIZE_WORKERS", 0)
+
+
+def test_run_sr_twin(no_fork, capsys):
+    """The real SR25 graphs at the defaults (8 layers x 64)."""
+    bad, total = run_sr.main(["--device", "cpu"])
+    assert total == 105 and 0 <= bad < total
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"SR25: \d+/105 indistinguishable pairs "
+                        r"\((PASS|FAIL)\)", line), line
+
+
+def test_run_csl_twin(no_fork, capsys):
+    """2 folds x 3 epochs at hidden 16 x 2 layers: 75 train graphs in 3
+    steps per epoch; the JAX driver's fold and summary lines."""
+    out = run_csl.main(["--folds", "2", "--epochs", "3", "--hidden", "16",
+                        "--layers", "2", "--device", "cpu"])
+    printed = capsys.readouterr().out.splitlines()
+    assert re.fullmatch(r"featurize: \d+\.\ds", printed[0])
+    assert [ln for ln in printed if ln.startswith("fold")] == [
+        f"fold {i}: acc {f['acc']:.3f}" for i, f in enumerate(out["folds"])]
+    assert re.fullmatch(r"CSL 2-fold acc: \d\.\d{4} \+- \d\.\d{4}",
+                        printed[-1])
+    for f in out["folds"]:
+        assert f["steps"] == 3 and len(f["losses"]) == 3
+        assert f["losses"][-1] < f["losses"][0]
+
+
+@pytest.mark.parametrize("trials", [1, 3])
+def test_run_exp_twin(no_fork, capsys, trials):
+    """EXP cut to 40 graphs, 2 splits x 3 epochs at hidden 16 x 2 layers;
+    `--nb_trials 3` takes the majority vote of the per-graph step."""
+    out = run_exp.main(["--max_graphs", "40", "--splits", "2", "--epochs",
+                        "3", "--hidden", "16", "--layers", "2",
+                        "--nb_trials", str(trials), "--device", "cpu"])
+    printed = capsys.readouterr().out.splitlines()
+    assert re.fullmatch(r"featurize 40 graphs: \d+\.\ds", printed[0])
+    split_re = (r"split \d: test \d\.\d{3} expressivity \d\.\d{3} "
+                r"learning \d\.\d{3}")
+    assert sum(bool(re.fullmatch(split_re, ln)) for ln in printed) == 2
+    assert re.fullmatch(r"EXP: test \d\.\d{4} expressivity \d\.\d{4} "
+                        r"learning \d\.\d{4}", printed[-1])
+    for r in out["splits"]:
+        assert r["steps"] == 1 and len(r["losses"]) == 3
+        assert all(0.0 <= a <= 1.0 for a in r["accs"])
+
+
 @pytest.mark.parametrize("main,flags,queue", [
     (run_zinc.main, ["--model", "NGNN"], "8.4"),
     (run_zinc.main, ["--model", "I2GNN"], "8.4"),
@@ -113,6 +199,14 @@ def test_run_graphcount_twin_ckpt_warm_start_and_ppgn(tmp_path, capsys):
     (run_graphcount.main, ["--mesh", "ep"], "10"),
     (run_graphcount.main, ["--multihost"], "10"),
     (run_graphcount.main, ["--compress_pools"], "9"),
+    (run_zinc_cycle.main, ["--model", "NGNN"], "8.4"),
+    (run_zinc_cycle.main, ["--model", "I2GNN"], "8.4"),
+    (run_zinc_cycle.main, ["--model", "GNN"], "8.7"),
+    (run_zinc_cycle.main, ["--copy_layout", "bucketed"], "8.4"),
+    (run_qm9.main, ["--model", "NGNN"], "8.4"),
+    (run_qm9.main, ["--model", "I2GNN"], "8.4"),
+    (run_qm9.main, ["--model", "k1_GNN"], "8.6"),
+    (run_qm9.main, ["--model", "k123_GNN"], "8.6"),
 ])
 def test_unported_flags_raise_with_their_queue(tmp_path, main, flags, queue):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
@@ -120,10 +214,21 @@ def test_unported_flags_raise_with_their_queue(tmp_path, main, flags, queue):
     assert not (tmp_path / "res").exists()
 
 
-@pytest.mark.parametrize("main", [run_zinc.main, run_graphcount.main])
+@pytest.mark.parametrize("main", [run_zinc.main, run_graphcount.main,
+                                  run_zinc_cycle.main, run_qm9.main])
 def test_twins_default_to_cuda_and_raise_without_it(tmp_path, main):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card path cannot run")
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--res_dir", str(tmp_path / "res")])
     assert not (tmp_path / "res").exists()
+
+
+@pytest.mark.parametrize("main", [run_sr.main, run_csl.main, run_exp.main])
+def test_expressiveness_twins_default_to_cuda(capsys, main):
+    """They raise before loading or featurizing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path cannot run")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([])
+    assert capsys.readouterr().out == ""

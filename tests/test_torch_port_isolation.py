@@ -75,8 +75,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
 
 
 def test_slice_modules_are_walked():
-    """The import walk reaches the PPGN slice's modules (and still finds
-    no JAX)."""
+    """The import walk reaches every slice's modules, the driver twins
+    and their data modules included (and still finds no JAX)."""
     r = _run([sys.executable, "-c", _IMPORT_ALL + "print(' '.join(names))"],
              cwd=REPO)
     assert r.returncode == 0, r.stderr
@@ -84,7 +84,9 @@ def test_slice_modules_are_walked():
     for mod in ("data.counting", "data.graphlets", "models.ppgn",
                 "ops.ppgn_pool", "ops.zemb_gather", "data.prefetch",
                 "featurize.cache", "train.checkpoint", "utils.rundir",
-                "run_zinc", "run_graphcount"):
+                "run_zinc", "run_graphcount", "train.fit", "data.qm9",
+                "data.csl", "data.sr", "data.planar_sat", "run_zinc_cycle",
+                "run_qm9", "run_sr", "run_exp", "run_csl"):
         assert f"escgnn_tpu_torch.{mod}" in names, mod
 
 
@@ -96,7 +98,10 @@ def test_importing_the_twins_runs_nothing(tmp_path):
     env["PYTHONPATH"] = REPO
     r = subprocess.run(
         [sys.executable, "-c", "import escgnn_tpu_torch.run_zinc, "
-         "escgnn_tpu_torch.run_graphcount", "--epochs", "x"],
+         "escgnn_tpu_torch.run_graphcount, escgnn_tpu_torch.run_zinc_cycle, "
+         "escgnn_tpu_torch.run_qm9, escgnn_tpu_torch.run_sr, "
+         "escgnn_tpu_torch.run_exp, escgnn_tpu_torch.run_csl",
+         "--epochs", "x"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout == ""

@@ -290,13 +290,20 @@ def test_loader_is_strict(variant):
 
 
 def test_unported_options_raise():
+    """dropout > 0 and the sharded modes raise; the QM9 fields (ported)
+    build, and `edge_float_attr` asks for the edge_attr width."""
+    base = NestedGINEffConfig(hidden=8, num_layers=1)
     for kw in (dict(dropout=0.1), dict(halo_axis="x"),
-               dict(edge_shard_axis="x"), dict(concat_pos=True),
-               dict(node_add_embed_vocab=5), dict(edge_float_attr=True)):
-        cfg = dataclasses.replace(NestedGINEffConfig(hidden=8, num_layers=1),
-                                  **kw)
+               dict(edge_shard_axis="x")):
         with pytest.raises(NotImplementedError):
-            NestedGINEff(cfg, device="cpu")
+            NestedGINEff(dataclasses.replace(base, **kw), device="cpu")
+    qm9 = dataclasses.replace(base, concat_pos=True, node_add_embed_vocab=5,
+                              edge_float_attr=True)
+    with pytest.raises(ValueError, match="edge_attr_dim"):
+        NestedGINEff(qm9, in_dim=11, device="cpu")
+    model = NestedGINEff(qm9, in_dim=11, edge_attr_dim=5, device="cpu")
+    assert tuple(model.node_type_embedding.weight.shape) == (5, 14)
+    assert model.conv1.lin_edge.in_features == 8 + 5
 
 
 def test_segment_layout_forward_and_grads():

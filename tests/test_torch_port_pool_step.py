@@ -192,6 +192,54 @@ def test_pool_eval_matches_jax(setup, bn_mode):
     assert not np.isclose(float(other), float(ge), rtol=1e-3)
 
 
+def test_batch_statistics_run_in_eval_mode(setup):
+    """BatchNorm's statistics mode is its own flag: batch-mode eval and
+    the refresh run every module in `eval()` (JAX's deterministic=True,
+    so a ported dropout stays off) with BN on batch statistics. The
+    batch-mode error equals a `train()` forward's on a copy (rtol 1e-6);
+    the running statistics and each BN's mode are put back; `train()` and
+    `eval()` still set BN's mode by default."""
+    from escgnn_tpu_torch.models.layers import (
+        MaskedBatchNorm,
+        set_use_running_average,
+    )
+
+    s = setup
+    model = _port_model(s)
+    b = pool_entry(s["pool"], 0)
+    seen = []
+    for m in model.modules():
+        m.register_forward_pre_hook(lambda mod, args: seen.append(mod.training))
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    model.eval()
+    assert all(m.use_running_average for m in bns)
+    before = bn_stats(model)
+    err, _ = eval_step(model, b, node_level=False, bn_mode="batch")
+    assert seen and not any(seen)
+    assert not model.training and all(m.use_running_average for m in bns)
+    after = bn_stats(model)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    ref = copy.deepcopy(model).train()
+    with torch.no_grad():
+        want = l1_graph_loss(ref(b), b) * b.graph_mask.sum()
+    np.testing.assert_allclose(float(err), float(want), rtol=1e-6)
+
+    seen.clear()
+    make_pool_refresh_step(model)(s["pool"])
+    assert seen and not any(seen) and not model.training
+    assert not all(torch.equal(before[k], v)
+                   for k, v in bn_stats(model).items())
+    # the flag alone switches the statistics, whatever `training` says
+    model.train()
+    assert not any(m.use_running_average for m in bns)
+    prev = set_use_running_average(model, True)
+    assert model.training and prev == [False] * len(bns)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            model(b).numpy(), copy.deepcopy(model).eval()(b).numpy(),
+            rtol=1e-6)
+
+
 def test_eval_step_refuses_unknown_bn_mode(setup):
     model = _port_model(setup)
     with pytest.raises(ValueError, match="bn_mode"):
