@@ -23,7 +23,13 @@ against its plain PyTorch version on the card, then drives these paths:
     start, one PPGN_eff epoch), `[run_zinc_cycle]` (node-level, 3 epochs
     on 1000 molecules) and `[run_qm9]` (3 epochs on 1000 synthetic
     molecules, node-type extras through the graphed step), each with its
-    `[pool_graph]`;
+    `[pool_graph]`, and `[run_ogb_mol]` (OgbGNN 6 x 300 with a virtual
+    node and dropout 0.65, 3 epochs on 640 synthetic molecules with the
+    triangle label, 16 graphed steps each; K1 at width 300 in f32 and
+    bf16; `[pool_graph]` at dropout 0.65 and at 0; two replays of the
+    captured step from one snapshot, different under dropout and equal
+    without; `[small_ogb]`, the card against the CPU; the bench's OgbGNN
+    step, 32 graphs in bf16, graphed and eager);
   * the expressiveness twins on the checkout's data: `[run_sr]` (SR25
     collisions of the untrained 8 x 64 model, card against CPU),
     `[run_exp]` (EXP cut to 400 graphs, 2 splits x 5 epochs) and
@@ -40,6 +46,7 @@ Needs a CUDA card and nvcc; exits 1 without a card. Imports no JAX.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -837,7 +844,9 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     the graphed pool step and one through eager steps. The first step's
     loss agrees at rel_tol[0] (1e-5) and every later one at rel_tol[1]
     (1e-3): the path is f32, but pooling and the embedding backward add
-    with atomics in no fixed order, and Adam amplifies that noise. The
+    with atomics in no fixed order, and Adam amplifies that noise.
+    `rel_tol=None` (a model with dropout: the two epochs draw other
+    masks) compares nothing and checks that both losses are finite. The
     kernel (label, symbol), K1 unless said, is counted by the profiler in
     a graphed epoch: once per step (None: no kernel on the path). Prints
     both ms/step, the device's busy time per step and the launches per
@@ -876,7 +885,11 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         train_step(model, opt_e, pool_entry(pool, int(j)), loss_fn)
         for j in order]).tolist())
     rel = [abs(g - e) / abs(e) for g, e in zip(g_losses, e_losses)]
-    if rel[0] > rel_tol[0] or max(rel) > rel_tol[1]:
+    if rel_tol is None:
+        if not all(math.isfinite(v) for v in g_losses + e_losses):
+            raise AssertionError(f"{twin}: non-finite losses {g_losses} "
+                                 f"{e_losses}")
+    elif rel[0] > rel_tol[0] or max(rel) > rel_tol[1]:
         raise AssertionError(f"{twin}: graphed losses {g_losses} != eager "
                              f"{e_losses}")
 
@@ -906,7 +919,8 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
          graphed_idle_share=1 - graphed_busy / g_ms,
          graph_launch_host_ms_per_step=launch_host,
          eager_idle_share=1 - eager_busy / e_ms,
-         first_loss_rel=rel[0], max_loss_rel=max(rel),
+         losses_compared=rel_tol is not None, first_loss_rel=rel[0],
+         max_loss_rel=max(rel),
          graphed_losses=json.dumps(g_losses), eager_losses=json.dumps(e_losses),
          **per_epoch, device_events_per_graphed_step=graphed_events / steps,
          launches_per_eager_step=per_eager, ok=True)
@@ -1115,6 +1129,290 @@ def run_qm9_twin(work: str, smi: str):
     if res["spec"].num_nodes != 64 * res["spec"].uniform_nodes:
         raise AssertionError(f"run_qm9: spec {res['spec']}")
     return k1
+
+
+def check_k1_width300(batch, dev):
+    """K1 at the OGB path's width, H 300, on the sorted view of one of its
+    dedup batches: f32 contiguous (the path's layout, checked against the
+    f64 sum and timed), bf16 contiguous (a 600-byte row stride: single
+    columns) and bf16 as the first 300 columns of a 304-wide tensor
+    (37 eight-wide units and a 4-column tail), both against the plain
+    version; two calls bit-equal, rows no id names exactly 0, one launch
+    per call by the wrapper's count (the profiler's device events of one
+    call are printed beside it)."""
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    perm, rows = batch.enc_edge_perm, batch.enc_row_sorted
+    E, R, H = perm.shape[0], batch.enc_idx.shape[0], 300
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f32 = torch.randn(E, H, device=dev, generator=gen)
+    w16 = torch.randn(E, H + 4, device=dev, generator=gen).to(torch.bfloat16)
+    cases = {"f32_h300": (f32, True),
+             "bf16_h300": (w16[:, :H].contiguous(), False),
+             "bf16_h300_ld304": (w16[:, :H], False)}
+    unnamed = torch.bincount(rows.long(), minlength=R)[:R] == 0
+    err = 0.0
+    for name, (dZ, exact) in cases.items():
+        got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
+        if exact:
+            want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
+                0, rows.long(), dZ.double().index_select(0, perm.long()))
+        else:
+            want = expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R)
+        torch.cuda.synchronize()
+        e = _check_close(f"K1 {name}", got, want.float(), rtol=1e-5,
+                         atol=1e-4)
+        if exact:
+            err = max(err, e)
+        if not torch.equal(got, expand_cuda.sorted_segment_sum(dZ, perm,
+                                                               rows, R)):
+            raise AssertionError(f"K1 {name}: not deterministic")
+        if unnamed.any() and got[unnamed].abs().max().item() != 0:
+            raise AssertionError(f"K1 {name}: a row no id names is not 0")
+    before = expand_cuda.launches
+    profiled_events = _device_kernels(
+        lambda: expand_cuda.sorted_segment_sum(f32, perm, rows, R))
+    per_call = (expand_cuda.launches - before) / 2  # a warm call, then one
+    if per_call != 1:
+        raise AssertionError(f"K1 launched {per_call} times in one call")
+    ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(f32, perm, rows, R))
+    plain_ms = _cuda_ms(
+        lambda: expand_cuda.sorted_segment_sum_plain(f32, perm, rows, R))
+    edge_row = batch.enc_edge_row.long()
+    library_ms = _cuda_ms(
+        lambda: torch.zeros(R, H, device=dev).index_add_(0, edge_row, f32))
+    bound_ms, bound_by = _bound(E * H * 4 + 2 * E * 4 + R * H * 4, E * H)
+    return dict(shapes=f"E={E},R={R},H={H}", cases=",".join(cases),
+                max_abs_err_f32=err, launches_per_call=per_call,
+                profiled_events_per_call=profiled_events, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_dropout_replays(args, graphs, spec, dev):
+    """Two replays of the captured OGB train step on one batch, the
+    weights and Adam's state put back between them but not the dropout
+    generator: at the twin's dropout they must give different losses
+    (each replay draws new masks), at dropout 0 equal ones (rel 1e-6).
+    Returns {dropout: (first, second)}."""
+    from escgnn_tpu_torch import run_ogb_mol
+    from escgnn_tpu_torch.data.prefetch import stack_split
+    from escgnn_tpu_torch.train import loop
+
+    pool = stack_split(graphs[:2 * spec.num_graphs], spec, dev)
+    out = {}
+    for drop in (args.drop_ratio, 0.0):
+        model = run_ogb_mol.build_model(
+            argparse.Namespace(**dict(vars(args), drop_ratio=drop)), dev)
+        opt = loop.adam_with_plateau(model.parameters(), args.lr,
+                                     capturable=True)
+        step = loop.make_pool_train_step(model, opt, loop.bce_graph_loss,
+                                         pool)
+        snap = dict(loop._snapshot(model, opt), rng=[])
+        first = float(step(pool, [0])[0])
+        loop._restore_in_place(model, opt, snap)
+        second = float(step(pool, [0])[0])
+        out[drop] = (first, second)
+    a, b = out[args.drop_ratio]
+    if not (math.isfinite(a) and math.isfinite(b)) or math.isclose(
+            a, b, rel_tol=1e-6):
+        raise AssertionError(f"dropout {args.drop_ratio}: two replays gave "
+                             f"losses {a} and {b}: one mask in every replay")
+    a, b = out[0.0]
+    if not math.isclose(a, b, rel_tol=1e-6):
+        raise AssertionError(f"dropout 0: two replays gave {a} and {b}")
+    return out
+
+
+def time_ogb_bench_step(dev):
+    """The bench's OgbGNN line (`bench.py:522-540`): 32 molhiv-shaped
+    synthetic graphs (h 4) in one uniform + dedup batch, OgbGNN 6 x 300,
+    virtual node, dropout 0, bf16 conv stacks, masked BCE. Timed as the
+    graphed pool step replayed over that batch and as eager steps, each
+    from the same initial weights; the profiler reads the graphed step's
+    busy time, device events and K1 launches."""
+    from escgnn_tpu_torch.data.batching import BatchSpec
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch.data.prefetch import pool_entry, stack_split
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.models.ogb_gnn import OgbGNN, OgbGNNConfig
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        bce_graph_loss,
+        make_pool_train_step,
+        train_step,
+    )
+
+    graphs = featurize_many(synthetic_ogb_mol(32, seed=0, num_tasks=1),
+                            EscConfig(h=4, use_rd=True, self_loop=True),
+                            num_workers=2)
+    spec = BatchSpec.uniform(graphs, 32, enc_layout="dedup")
+    pool = stack_split(graphs, spec, dev)
+    cfg = OgbGNNConfig(num_tasks=1, num_layers=6, emb_dim=300, dropout=0.0,
+                       virtual_node=True, compute_dtype="bfloat16")
+    steps = 20
+
+    def model():
+        return OgbGNN(cfg, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+
+    m = model()
+    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
+    graphed = make_pool_train_step(m, opt, bce_graph_loss, pool)
+    graphed(pool, [0] * 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_losses = graphed(pool, [0] * steps).tolist()
+    g_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _, prof = _profiled(lambda: graphed(pool, [0] * 5))
+    busy = _busy_ms(prof) / 5
+    events = _kernel_events(prof) / 5
+    k1 = _kernel_events(prof, "segsum_kernel") / 5
+
+    m = model()
+    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
+    b = pool_entry(pool, 0)
+    for _ in range(3):
+        train_step(m, opt, b, bce_graph_loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_losses = torch.stack([train_step(m, opt, b, bce_graph_loss)
+                            for _ in range(steps)]).tolist()
+    e_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not all(math.isfinite(v) for v in g_losses + e_losses):
+        raise AssertionError(f"ogb bench step: non-finite losses {g_losses}")
+    if k1 != 1:
+        raise AssertionError(f"ogb bench step: K1 {k1} times per step")
+    real_edges = sum(g.num_edges for g in graphs)
+    return dict(graphs=32, N=spec.num_nodes, E=spec.num_edges,
+                R=spec.num_enc_rows, real_edges=real_edges,
+                graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+                graphed_busy_ms_per_step=busy,
+                graphed_idle_share=1 - busy / g_ms,
+                device_events_per_graphed_step=events,
+                k1_per_graphed_step=k1,
+                graphed_real_edges_per_s=real_edges / (g_ms / 1e3))
+
+
+def check_small_ogb(dev):
+    """OgbGNN on the card (K1 in the backward) against the CPU (plain
+    versions) on a small f32 input (8 graphs, emb 16, 2 layers, attention
+    pooling): eval logits on the running and on the batch statistics at
+    dropout 0.5, and at dropout 0 the train-mode loss and every gradient,
+    rtol/atol 1e-4 (gradients: atol 1e-4 of the largest)."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.models.layers import bn_statistics
+    from escgnn_tpu_torch.models.ogb_gnn import OgbGNN, OgbGNNConfig
+    from escgnn_tpu_torch.train.loop import bce_graph_loss
+
+    graphs = featurize_many(synthetic_ogb_mol(8, seed=6, num_tasks=2,
+                                              nan_frac=0.2),
+                            EscConfig(h=4, use_rd=True, self_loop=True))
+    spec = BatchSpec.uniform(graphs, 8, enc_layout="dedup")
+
+    def run(device, drop):
+        cfg = OgbGNNConfig(num_tasks=2, num_layers=2, emb_dim=16,
+                           dropout=drop, graph_pooling="attention")
+        m = OgbGNN(cfg, device=device,
+                   generator=torch.Generator().manual_seed(4))
+        b = pad_and_batch(graphs, spec, device=device)
+        out = {}
+        m.eval()
+        with torch.no_grad():
+            for running in (True, False):
+                with bn_statistics(m, use_running_average=running):
+                    out[f"eval_running_{running}"] = m(b).cpu()
+        if drop == 0.0:
+            m.train()
+            loss = bce_graph_loss(m(b), b)
+            loss.backward()
+            out["loss"] = loss.detach().cpu()
+            out.update({f"grad {k}": p.grad.cpu()
+                        for k, p in m.named_parameters()})
+        return out
+
+    worst = 0.0
+    for drop in (0.5, 0.0):
+        cpu, gpu = run("cpu", drop), run(dev, drop)
+        gmax = max((v.abs().max().item() for k, v in cpu.items()
+                    if k.startswith("grad")), default=1.0)
+        for k in cpu:
+            atol = 1e-4 * gmax if k.startswith("grad") else 1e-4
+            e = _check_close(f"small ogb[{drop}] {k}", gpu[k], cpu[k],
+                             rtol=1e-4, atol=atol)
+            if not k.startswith("grad"):
+                worst = max(worst, e)
+    _log("small_ogb", graphs=8, emb=16, layers=2, pooling="attention",
+         max_abs_out_err=worst, ok=True)
+
+
+def run_ogb_mol_twin(work: str, smi: str, dev):
+    """`[run_ogb_mol]`: the OGB twin at its defaults (OgbGNN 6 x 300,
+    virtual node, mean pooling, dropout 0.65, batch 32, h 4, masked BCE,
+    ROC-AUC) on 640 synthetic molecules with the triangle label for 3
+    epochs: 512 train graphs, 16 graphed steps per epoch (loss falls,
+    val ROC-AUC in [0, 1]). Then on its train split and fresh models: K1
+    at width 300, `[pool_graph]` at the twin's dropout (losses not
+    compared; K1 once per graphed step) and at dropout 0 (graphed against
+    eager at rel 1e-5 on the first step), two replays from one snapshot,
+    the small card-against-CPU check and the bench-shaped step. Returns
+    K1's launches in one graphed epoch at the twin's defaults."""
+    from escgnn_tpu_torch import run_ogb_mol
+    from escgnn_tpu_torch.data.batching import pad_and_batch
+    from escgnn_tpu_torch.ops import expand_cuda
+    from escgnn_tpu_torch.train.loop import bce_graph_loss
+
+    argv = ["--num_graphs", "640", "--epochs", "3", "--synth_label", "tri",
+            "--num_workers", "2", "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, "ogb")]
+    expand_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = run_ogb_mol.main(argv)
+    seconds = time.perf_counter() - t0
+    k1_wrapper = expand_cuda.launches
+    eps = res["epochs"]
+    losses, vals = [e["loss"] for e in eps], [e["val"] for e in eps]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"run_ogb_mol: losses {losses}")
+    if not all(0.0 <= v <= 1.0 for v in vals):
+        raise AssertionError(f"run_ogb_mol: val ROC-AUC {vals}")
+    if any(e["steps"] != 16 for e in eps) or k1_wrapper < 1:
+        raise AssertionError(f"run_ogb_mol: steps {[e['steps'] for e in eps]}"
+                             f", K1 wrapper launches {k1_wrapper}")
+
+    args = run_ogb_mol.build_parser().parse_args(argv)
+    splits = run_ogb_mol.build_splits(args)[0]
+    spec = res["spec"]
+    k1_300 = check_k1_width300(
+        pad_and_batch(splits["train"][:spec.num_graphs], spec, device=dev),
+        dev)
+    k1_graphed = check_pool_graph(
+        "run_ogb_mol", run_ogb_mol.build_model(args, dev), bce_graph_loss,
+        splits["train"], spec, args.lr, dev, rel_tol=None)
+    args0 = run_ogb_mol.build_parser().parse_args(argv + ["--drop_ratio",
+                                                          "0"])
+    check_pool_graph("run_ogb_mol_dropout0",
+                     run_ogb_mol.build_model(args0, dev), bce_graph_loss,
+                     splits["train"], spec, args.lr, dev)
+    replays = check_dropout_replays(args, splits["train"], spec, dev)
+    check_small_ogb(dev)
+    bench = time_ogb_bench_step(dev)
+    _log("run_ogb_mol", seconds=round(seconds, 3), graphs=640,
+         steps_per_epoch=16, emb=args.emb_dim, layers=args.num_layer,
+         dropout=args.drop_ratio, batch=args.batch_size,
+         data_seconds=round(res["data_seconds"], 3),
+         epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+         loss=json.dumps(losses), val_rocauc=json.dumps(vals),
+         best_val=res["best_val"], best_test=res["best_test"],
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]),
+         k1_wrapper_launches=k1_wrapper, k1_per_graphed_epoch=k1_graphed,
+         replay_losses=json.dumps({str(k): v for k, v in replays.items()}),
+         k1_h300=json.dumps(k1_300), bench_step=json.dumps(bench),
+         card=json.dumps(smi), ok=True)
+    return k1_graphed
 
 
 def run_sr_twin(smi: str, dev):
@@ -1460,7 +1758,8 @@ def main() -> int:
                     "run_zinc": check_zinc_pool_graph(work, zinc_res, dev),
                     "run_graphcount": run_graphcount_twin(work, smi),
                     "run_zinc_cycle": run_zinc_cycle_twin(work, smi),
-                    "run_qm9": run_qm9_twin(work, smi)}
+                    "run_qm9": run_qm9_twin(work, smi),
+                    "run_ogb_mol": run_ogb_mol_twin(work, smi, dev)}
     # 10. the expressiveness twins (data from the checkout's data/)
     run_sr_twin(smi, dev)
     run_exp_twin(smi, dev)

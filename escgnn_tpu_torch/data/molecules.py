@@ -1,11 +1,17 @@
-"""ZINC molecules (counterpart of the ZINC part of
-`escgnn_tpu/data/molecules.py`).
+"""ZINC and OGB graphs (counterpart of `escgnn_tpu/data/molecules.py`
+without AQSOL and PCQM4Mv2).
 
 The reference's ZINC artifact is read when it is present
 (`load_zinc_pickle`); otherwise `synthetic_zinc` makes deterministic
 graphs with ZINC-12k's shapes and statistics: ~23 heavy atoms, 28 node
 types, 4 bond types and a scalar regression target that is a structural
 function of the graph (so models can learn it).
+
+The OGB datasets: an extracted raw directory is read without the `ogb`
+package (`load_ogb_graph_dir`); otherwise `synthetic_ogb_mol` (ogbg-mol*
+shapes) and `synthetic_ppa` (ogbg-ppa shapes) make deterministic
+stand-ins. Every generator's output is bit-equal to the JAX package's for
+the same seed.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ import os
 import numpy as np
 
 from escgnn_tpu_torch.data.container import GraphData
+
+# OGB atom / bond feature vocabularies (ogb.utils.features)
+_ATOM_DIMS = (119, 4, 12, 12, 10, 6, 6, 2, 2)
+_BOND_DIMS = (5, 6, 2)
 
 
 def _molecule_skeleton(rng: np.random.Generator, n: int):
@@ -114,6 +124,12 @@ def load_zinc_pickle(path: str) -> dict:
     return out
 
 
+def _split_80_10_10(raw: list) -> dict:
+    n_tr, n_val = int(0.8 * len(raw)), int(0.1 * len(raw))
+    return {"train": raw[:n_tr], "val": raw[n_tr:n_tr + n_val],
+            "test": raw[n_tr + n_val:]}
+
+
 def zinc_splits(data_dir: str, num_graphs: int = 2000,
                 seed: int = 0) -> tuple[dict, bool]:
     """The real ZINC splits when the reference artifact
@@ -124,10 +140,188 @@ def zinc_splits(data_dir: str, num_graphs: int = 2000,
                  os.path.join(data_dir, "zinc", "raw", "ZINC.pkl")):
         if os.path.exists(cand):
             return load_zinc_pickle(cand), True
-    raw = synthetic_zinc(num_graphs=num_graphs, seed=seed)
-    n_tr, n_val = int(0.8 * len(raw)), int(0.1 * len(raw))
-    return {
-        "train": raw[:n_tr],
-        "val": raw[n_tr:n_tr + n_val],
-        "test": raw[n_tr + n_val:],
-    }, False
+    return _split_80_10_10(synthetic_zinc(num_graphs=num_graphs,
+                                          seed=seed)), False
+
+
+def synthetic_ogb_mol(
+    num_graphs: int = 2000,
+    seed: int = 0,
+    num_tasks: int = 1,
+    nan_frac: float = 0.0,
+    label_kind: str = "parity",
+) -> list[GraphData]:
+    """ogbg-mol*-shaped graphs: x (n, 9) int atom features within the OGB
+    vocab bounds, edge_attr (E, 3) int bond features, y (num_tasks,)
+    float32 in {0, 1} with a `nan_frac` fraction of NaN holes (unlabeled
+    entries, masked out of the BCE).
+
+    `label_kind`: "parity" (a node-feature / triangle parity, measured
+    near-unlearnable at this scale: rows trained on it show that the path
+    trains, not that the model learns) or "tri" (triangle count above the
+    dataset median, inside the ESC encoding's counting power: a capable
+    model reaches a high ROC-AUC)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    tris = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(12, 28))
+        ei = _molecule_skeleton(rng, n)
+        x = np.stack(
+            [rng.integers(0, min(d, 16), n) for d in _ATOM_DIMS], axis=1
+        ).astype(np.int32)
+        ea = np.stack(
+            [rng.integers(0, d, ei.shape[1]) for d in _BOND_DIMS], axis=1
+        ).astype(np.int32)
+        tri = _num_triangles(n, ei)
+        base = (tri % 2) ^ (n % 2)
+        y = np.empty(num_tasks, np.float32)
+        for t in range(num_tasks):
+            y[t] = float((base + t + int(x[:, 0].sum())) % 2)
+        if nan_frac > 0:
+            holes = rng.random(num_tasks) < nan_frac
+            y[holes] = np.nan
+        out.append(GraphData(num_nodes=n, edge_index=ei, x=x, edge_attr=ea,
+                             y=y))
+        tris.append(tri)
+    if label_kind == "tri":
+        med = float(np.median(tris))
+        for g, tri in zip(out, tris):
+            keep_nan = np.isnan(g.y)
+            g.y[:] = float(tri > med)
+            g.y[keep_nan] = np.nan
+    elif label_kind != "parity":
+        raise ValueError(f"unknown label_kind {label_kind!r}")
+    return out
+
+
+def synthetic_ppa(num_graphs: int = 2000, seed: int = 0,
+                  num_classes: int = 37) -> list[GraphData]:
+    """ogbg-ppa-shaped graphs: no node features (x = zeros), 7-dim float
+    edge features, one of 37 species classes tied to graph statistics so
+    that models can learn it."""
+    rng = np.random.default_rng(seed + 11)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(15, 40))
+        # denser association-network-like topology
+        p = rng.uniform(0.12, 0.3)
+        upper = np.triu(rng.random((n, n)) < p, k=1)
+        order = rng.permutation(n)
+        upper[np.minimum(order[:-1], order[1:]),
+              np.maximum(order[:-1], order[1:])] = True
+        a, b = np.nonzero(upper)
+        ei = np.stack([np.concatenate([a, b]), np.concatenate([b, a])]
+                      ).astype(np.int32)
+        ea = rng.random((ei.shape[1], 7)).astype(np.float32)
+        tri = _num_triangles(n, ei)
+        cls = int((n // 3 + tri + int(ea.mean() * 10)) % num_classes)
+        out.append(GraphData(num_nodes=n, edge_index=ei,
+                             x=np.zeros((n, 1), np.int32), edge_attr=ea,
+                             y=np.asarray([cls], np.int64)))
+    return out
+
+
+def ppa_splits(data_dir: str, num_graphs: int = 2000,
+               seed: int = 0) -> tuple[dict, bool]:
+    """ogbg-ppa splits: an 80/10/10 split of `synthetic_ppa` (the real
+    dataset's loader needs the `ogb` package). Returns (splits, False)."""
+    return _split_80_10_10(synthetic_ppa(num_graphs=num_graphs,
+                                         seed=seed)), False
+
+
+def load_ogb_graph_dir(root: str) -> dict:
+    """Parse an OGB graph-property-prediction dataset directory without
+    the `ogb` package, in the raw schema that package downloads:
+
+        <root>/raw/num-node-list.csv.gz   one int per graph
+        <root>/raw/num-edge-list.csv.gz   one int per graph
+        <root>/raw/edge.csv.gz            src,dst per directed edge row
+        <root>/raw/node-feat.csv.gz       one int row per node (optional)
+        <root>/raw/edge-feat.csv.gz       one row per edge (optional)
+        <root>/raw/graph-label.csv.gz     one row per graph (NaN or an
+                                          empty field = unlabeled)
+        <root>/split/<scheme>/{train,valid,test}.csv.gz  graph indices
+
+    Edge rows are taken as they are (OGB molecule datasets store both
+    directions); integer-valued edge features stay ints. The first split
+    scheme in name order is used. Returns {'train', 'val', 'test'} lists
+    of GraphData."""
+    import glob
+    import gzip
+
+    def read_csv(name, dtype):
+        path = os.path.join(root, "raw", name)
+        if not os.path.exists(path):
+            return None
+        with gzip.open(path, "rt") as f:
+            rows = [[dtype(v) if v else float("nan")
+                     for v in line.strip("\n").split(",")]
+                    for line in f if line.strip()]
+        return np.asarray(rows)
+
+    n_nodes = read_csv("num-node-list.csv.gz", int)[:, 0]
+    n_edges = read_csv("num-edge-list.csv.gz", int)[:, 0]
+    edges = read_csv("edge.csv.gz", int)
+    node_feat = read_csv("node-feat.csv.gz", float)
+    edge_feat = read_csv("edge-feat.csv.gz", float)
+    labels = read_csv("graph-label.csv.gz", float)
+
+    graphs = []
+    noff = eoff = 0
+    for g, (nn, ne) in enumerate(zip(n_nodes, n_edges)):
+        ei = edges[eoff:eoff + ne].T.astype(np.int32)
+        x = (node_feat[noff:noff + nn].astype(np.int32)
+             if node_feat is not None else np.zeros((nn, 1), np.int32))
+        ea = edge_feat[eoff:eoff + ne] if edge_feat is not None else None
+        if ea is not None:
+            ea = (ea.astype(np.int32) if np.allclose(ea, np.round(ea))
+                  else ea.astype(np.float32))
+        graphs.append(GraphData(num_nodes=int(nn), edge_index=ei, x=x,
+                                edge_attr=ea,
+                                y=labels[g].astype(np.float32)))
+        noff += nn
+        eoff += ne
+
+    split_dirs = sorted(glob.glob(os.path.join(root, "split", "*")))
+    if not split_dirs:
+        raise FileNotFoundError(f"no split scheme under {root}/split")
+    out = {}
+    for fname, key in (("train", "train"), ("valid", "val"),
+                       ("test", "test")):
+        with gzip.open(os.path.join(split_dirs[0], f"{fname}.csv.gz"),
+                       "rt") as f:
+            idx = [int(line.strip()) for line in f if line.strip()]
+        out[key] = [graphs[i] for i in idx]
+    return out
+
+
+def ogb_mol_splits(
+    data_dir: str,
+    dataset: str,
+    num_graphs: int = 2000,
+    seed: int = 0,
+    num_tasks: int = 1,
+    nan_frac: float = 0.0,
+    label_kind: str = "parity",
+) -> tuple[dict, bool]:
+    """The real OGB molecule splits when `<data_dir>/<dataset>/raw` exists
+    (underscores for dashes first, as the package extracts it); otherwise
+    an 80/10/10 split of `synthetic_ogb_mol`. Raises when the real labels'
+    width is not `num_tasks`. Returns (splits, is_real)."""
+    for cand in (os.path.join(data_dir, dataset.replace("-", "_")),
+                 os.path.join(data_dir, dataset)):
+        if os.path.isdir(os.path.join(cand, "raw")):
+            splits = load_ogb_graph_dir(cand)
+            g0 = next((g for s in splits.values() for g in s
+                       if g.y is not None), None)
+            if g0 is not None:
+                width = int(np.asarray(g0.y).reshape(-1).shape[0])
+                if width != num_tasks:
+                    raise ValueError(
+                        f"{dataset}: real label width {width} != requested "
+                        f"num_tasks {num_tasks}; pass --num_tasks {width}")
+            return splits, True
+    return _split_80_10_10(synthetic_ogb_mol(
+        num_graphs=num_graphs, seed=seed, num_tasks=num_tasks,
+        nan_frac=nan_frac, label_kind=label_kind)), False

@@ -9,6 +9,13 @@ kernel and bias, Embedding = N(0, 1).
 Mixed precision follows JAX's promotion rules, written out as casts:
 a bf16 activation times an f32 weight computes in f32 (`TorchDense`,
 `(1 + eps) * x`), and BatchNorm returns its input dtype.
+
+Dropout is flax's `nn.Dropout`: active only in `train()` (JAX's
+`deterministic=False`), keep each entry with probability 1 - rate and
+scale it by 1 / (1 - rate). Its uniform draws come from an explicit
+`torch.Generator` that the model owns, on the model's device; JAX's
+random bits are not reproduced, so tests compare it in eval mode and
+check its statistics.
 """
 
 from __future__ import annotations
@@ -143,17 +150,48 @@ def bn_statistics(model: nn.Module, use_running_average: bool):
             m.use_running_average = flag
 
 
+def dropout(x, rate: float, rng: Optional[torch.Generator],
+            training: bool):
+    """flax `nn.Dropout(rate, deterministic=not training)(x)`: x where
+    rate is 0 or not training, zeros where rate is 1, else each entry
+    kept (uniform draw < 1 - rate, from `rng`) as x / (1 - rate), or 0."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=rng, device=x.device)
+    return torch.where(u < keep, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """`dropout` as a module: draws from `rng` in `train()` only."""
+
+    def __init__(self, rate: float, rng: Optional[torch.Generator]):
+        super().__init__()
+        if rate > 0.0 and rng is None:
+            raise ValueError("dropout > 0 needs the model's generator")
+        self.rate = float(rate)
+        self.rng = rng
+
+    def forward(self, x):
+        return dropout(x, self.rate, self.rng, self.training)
+
+
 class MLP(nn.Module):
-    """The reference's Sequential pattern: [Linear -> BN -> act] per
-    hidden layer; `pre_act=True` prepends BN -> act before the first
-    Linear (the z_embedding head shape). Dropout is not ported (the
-    flagship runs with dropout 0)."""
+    """The reference's Sequential pattern: [Linear -> Dropout -> BN ->
+    act] per hidden layer; `pre_act=True` prepends Dropout -> BN -> act
+    before the first Linear (the z_embedding head shape). Dropout draws
+    from `rng` (needed when `dropout` > 0)."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 act: Callable, pre_act: bool = False, *,
+                 act: Callable, pre_act: bool = False, dropout: float = 0.0,
+                 rng: Optional[torch.Generator] = None, *,
                  generator: torch.Generator):
         super().__init__()
         self.act = act
+        self.drop = Dropout(dropout, rng)
         self.order = []
         n_bn = 0
         if pre_act:
@@ -174,7 +212,7 @@ class MLP(nn.Module):
         for name in self.order:
             layer = getattr(self, name)
             if isinstance(layer, MaskedBatchNorm):
-                x = self.act(layer(x, mask))
+                x = self.act(layer(self.drop(x), mask))
             else:
                 x = layer(x)
         return x

@@ -16,7 +16,13 @@ Variants carried by this package:
 The structural embedding path: on the dedup layout the z reduce and the
 z MLP run on the batch's unique histogram rows with multiplicity-weighted
 BatchNorm, then one gather expands them to edges (`ops/zemb.py`); the
-result is the edge feature of every GINE layer.
+result is the edge feature of every GINE layer. With dropout > 0 the z
+MLP runs on the expanded edge rows instead (dropout would correlate
+edges that share a row), as in JAX.
+
+Dropout sits in every MLP (z, x_embedding, the conv MLPs) and in the
+head, before or after its activation by `head_order`; it draws from the
+model's generator `rng` (seeded with `rng_seed`) in `train()` only.
 
 BatchNorm's statistics mode is its own flag (flax's
 `use_running_average`, `models/layers.py`), which `train()` / `eval()`
@@ -36,6 +42,7 @@ from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.models.layers import (
     MLP,
+    Dropout,
     GINEConv,
     MaskedBatchNorm,
     TorchDense,
@@ -74,7 +81,6 @@ class NestedGINEffConfig:
 
 def _check_ported(cfg: NestedGINEffConfig):
     unported = {
-        "dropout > 0 (needs the width layout)": cfg.dropout > 0,
         "halo_axis": cfg.halo_axis is not None,
         "edge_shard_axis": cfg.edge_shard_axis is not None,
     }
@@ -95,11 +101,12 @@ class NestedGINEff(nn.Module):
     `edge_attr_dim` the width of `batch.edge_attr` under
     `edge_float_attr` (flax reads both from the first batch). The
     parameters are drawn on the CPU from `generator` (seed 0 when None)
-    and then moved to `device`."""
+    and then moved to `device`; dropout draws from `rng`, a generator on
+    `device` seeded with `rng_seed`."""
 
     def __init__(self, cfg: NestedGINEffConfig, in_dim: int = 1,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 edge_attr_dim: int = 0):
+                 edge_attr_dim: int = 0, rng_seed: int = 0):
         super().__init__()
         _check_ported(cfg)
         device = resolve_device(device)
@@ -108,6 +115,8 @@ class NestedGINEff(nn.Module):
         g = generator
         self.cfg = cfg
         self.act = _ACTS[cfg.act]
+        self.rng = torch.Generator(device=device).manual_seed(rng_seed)
+        drop = dict(dropout=cfg.dropout, rng=self.rng)
         H = cfg.hidden
         x_dim = in_dim
         if cfg.node_embed_vocab:
@@ -126,7 +135,8 @@ class NestedGINEff(nn.Module):
                 cfg.node_add_embed_vocab, x_dim, generator=g)
         self.z_initial = nn.Parameter(
             torch.empty(cfg.z_dim, H).normal_(0.0, 1.0, generator=g))
-        self.z_embedding = MLP(H, (H,), self.act, pre_act=True, generator=g)
+        self.z_embedding = MLP(H, (H,), self.act, pre_act=True, **drop,
+                               generator=g)
         edge_dim = H
         if cfg.edge_embed_vocab:
             self.edge_type_embedding = TorchEmbed(
@@ -139,13 +149,14 @@ class NestedGINEff(nn.Module):
             edge_dim += edge_attr_dim
         jk_dim = H * cfg.num_layers
         if cfg.use_x_embedding_jk:
-            self.x_embedding = MLP(in_dim, (H, H), self.act, generator=g)
+            self.x_embedding = MLP(in_dim, (H, H), self.act, **drop,
+                                   generator=g)
             jk_dim += H
         self.convs = []
         for i in range(cfg.num_layers):
             in_ch = x_dim if i == 0 else H
             conv = GINEConv(
-                in_ch, MLP(in_ch, (H, H), self.act, generator=g),
+                in_ch, MLP(in_ch, (H, H), self.act, **drop, generator=g),
                 edge_dim=edge_dim, generator=g,
             )
             self.add_module(f"conv{i + 1}", conv)
@@ -153,7 +164,12 @@ class NestedGINEff(nn.Module):
         self.lin1 = TorchDense(jk_dim, H, generator=g)
         self.bn_lin1 = MaskedBatchNorm(H)
         self.lin2 = TorchDense(H, cfg.out_dim, generator=g)
+        self.head_drop = Dropout(cfg.dropout, self.rng)
         self.to(device)
+
+    def generators(self) -> list:
+        """The generators a train-mode forward draws from."""
+        return [self.rng] if self.cfg.dropout > 0 else []
 
     def forward(self, batch: GraphBatch):
         cfg = self.cfg
@@ -172,7 +188,8 @@ class NestedGINEff(nn.Module):
                 node_type.reshape(node_type.shape[0]))
 
         # --- per-edge structural embedding ---
-        u = zemb_unique_rows(self.z_initial, batch)
+        u = (zemb_unique_rows(self.z_initial, batch) if cfg.dropout == 0.0
+             else None)
         if u is not None and batch.enc_row_weight is not None:
             # dedup layout: the z MLP runs on the R unique rows with
             # multiplicity-weighted BN, then one gather to edges
@@ -213,5 +230,8 @@ class NestedGINEff(nn.Module):
         h = h.to(torch.float32)
         h = self.lin1(h)
         h = self.bn_lin1(h, head_mask)
-        h = self.act(h)  # dropout (0 here) sits before or after: a no-op
+        if cfg.head_order == "act_dropout":
+            h = self.head_drop(self.act(h))
+        else:
+            h = self.act(self.head_drop(h))
         return self.lin2(h)

@@ -1,8 +1,11 @@
-"""Masked segment reductions (counterpart of the parts of
-`escgnn_tpu/ops/segment.py` the flagship path uses).
+"""Masked segment reductions (counterpart of `escgnn_tpu/ops/segment.py`
+without `pool_copy_blocks`, which comes with the copy family).
 
 Every op takes an explicit validity mask instead of relying on
 out-of-range ids being dropped, so padding policy lives in one place.
+Max and min fill masked rows with the dtype's finite extreme before the
+reduce (`scatter_reduce` with `include_self=False`, whose gradient splits
+a tie evenly, as JAX's does) and give `empty_value` for empty segments.
 """
 
 from __future__ import annotations
@@ -12,12 +15,12 @@ from typing import Optional
 import torch
 
 
-def _apply_mask(values, mask: Optional[torch.Tensor]):
+def _apply_mask(values, mask: Optional[torch.Tensor], fill=0.0):
     if mask is None:
         return values
     m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
-    return torch.where(m, values, torch.zeros((), dtype=values.dtype,
-                                              device=values.device))
+    return torch.where(m, values, torch.full((), fill, dtype=values.dtype,
+                                             device=values.device))
 
 
 def segment_sum(values, segment_ids, num_segments: int,
@@ -27,6 +30,60 @@ def segment_sum(values, segment_ids, num_segments: int,
     values = _apply_mask(values, mask)
     out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
     return out.index_add_(0, segment_ids.long(), values)
+
+
+def segment_mean(values, segment_ids, num_segments: int,
+                 mask: Optional[torch.Tensor] = None):
+    """Masked segment mean; empty segments yield 0."""
+    s = segment_sum(values, segment_ids, num_segments, mask)
+    ones = (torch.ones(values.shape[0], dtype=s.dtype, device=s.device)
+            if mask is None else mask.to(s.dtype))
+    cnt = segment_sum(ones, segment_ids, num_segments).clamp_min(1.0)
+    return s / cnt.reshape(cnt.shape + (1,) * (s.dim() - 1))
+
+
+def _segment_extreme(values, segment_ids, num_segments, mask, reduce,
+                     fill, empty_value):
+    values = _apply_mask(values, mask, fill)
+    idx = segment_ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
+    out = torch.full((num_segments,) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce(0, idx.expand_as(values), values, reduce,
+                             include_self=False)
+    empty = out <= fill if reduce == "amax" else out >= fill
+    return torch.where(empty, torch.full((), empty_value, dtype=out.dtype,
+                                         device=out.device), out)
+
+
+def segment_max(values, segment_ids, num_segments: int,
+                mask: Optional[torch.Tensor] = None,
+                empty_value: float = 0.0):
+    """Masked segment max; empty segments yield `empty_value`."""
+    return _segment_extreme(values, segment_ids, num_segments, mask, "amax",
+                            torch.finfo(values.dtype).min, empty_value)
+
+
+def segment_min(values, segment_ids, num_segments: int,
+                mask: Optional[torch.Tensor] = None,
+                empty_value: float = 0.0):
+    """Masked segment min; empty segments yield `empty_value`."""
+    return _segment_extreme(values, segment_ids, num_segments, mask, "amin",
+                            torch.finfo(values.dtype).max, empty_value)
+
+
+def segment_softmax(logits, segment_ids, num_segments: int,
+                    mask: Optional[torch.Tensor] = None):
+    """Numerically stable softmax within segments (attention pooling).
+    Masked rows are filled with the finite dtype-min before the exp: a
+    masked logit can exceed its segment's max, and its exp would
+    overflow to inf before the mask and reach the gradient as inf * 0."""
+    neg = torch.finfo(logits.dtype).min
+    filled = _apply_mask(logits, mask, neg)
+    mx = segment_max(filled, segment_ids, num_segments)
+    ex = torch.exp(torch.clamp_min(filled - mx[segment_ids.long()], neg))
+    ex = _apply_mask(ex, mask)
+    denom = segment_sum(ex, segment_ids, num_segments).clamp_min(1e-16)
+    return ex / denom[segment_ids.long()]
 
 
 def pool_nodes_to_graphs(values, batch, reduce: str = "sum"):

@@ -1,6 +1,6 @@
 """Training loop building blocks (counterpart of `escgnn_tpu/train/loop.py`).
 
-Adam + L1/MSE/CE losses + ReduceLROnPlateau, as PyTorch that updates the
+Adam + L1/CE/BCE losses + ReduceLROnPlateau, as PyTorch that updates the
 model in place:
   * `train_step`: forward (BatchNorm in batch-statistics mode),
     backward, one Adam update (with optax's global-norm clip when the
@@ -16,13 +16,19 @@ model in place:
     were), the model in `eval()` either way;
   * `make_accuracy_step` and `make_pergraph_correct_step`: classification
     eval with the running statistics, returning device tensors;
+  * `make_pool_logits_step`: the logits of every batch of a stacked pool
+    with the running statistics, for a metric computed on the host;
   * `refresh_bn_stats` and `make_pool_refresh_step`: the running
     statistics re-estimated as the exact average of per-batch moments.
 
 BatchNorm's statistics mode is set on its own (`models/layers.py`
 `set_use_running_average`, `bn_statistics`), apart from `model.training`:
 every forward that JAX runs with `deterministic=True` runs here in
-`eval()`, whichever statistics its BatchNorm uses.
+`eval()`, whichever statistics its BatchNorm uses. Dropout and random
+node initialisation draw only in `train()`, from the generators the
+model lists in `model.generators()` (none when it draws nothing); the
+graphed pool step registers them with its CUDA graph, so each replay
+draws new numbers.
 """
 
 from __future__ import annotations
@@ -142,6 +148,39 @@ def ce_graph_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     nll = -F.log_softmax(out, dim=-1).gather(1, labels[:, None])[:, 0]
     m = batch.graph_mask.to(nll.dtype)
     return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def ce_node_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Masked softmax cross-entropy over real nodes; labels < 0 are
+    outside the training node split and drop out."""
+    labels = batch.y.reshape(-1).long()
+    logp = F.log_softmax(out, dim=-1)
+    nll = -logp.gather(1, labels.clamp_min(0)[:, None])[:, 0]
+    m = batch.node_mask.to(nll.dtype) * (labels >= 0)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def make_sequence_ce_loss(seq_len: int, vocab: int):
+    """Masked mean cross-entropy over `seq_len` token positions: y (G, L)
+    int token ids, logits (G, L * vocab) (the ogbg-code2 task shape)."""
+
+    def loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+        G = out.shape[0]
+        logp = F.log_softmax(out.reshape(G, seq_len, vocab), dim=-1)
+        labels = batch.y.reshape(G, seq_len).long()
+        nll = -logp.gather(2, labels[:, :, None])[..., 0]
+        m = batch.graph_mask.to(nll.dtype)[:, None]
+        return (nll * m).sum() / (m.sum() * seq_len).clamp_min(1.0)
+
+    return loss
+
+
+def bce_graph_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Masked sigmoid BCE over real graphs, NaN labels dropped (the one
+    implementation is `train/metrics.py` `masked_bce_with_logits`)."""
+    from escgnn_tpu_torch.train.metrics import masked_bce_with_logits
+
+    return masked_bce_with_logits(out, batch)
 
 
 def train_step(
@@ -339,6 +378,29 @@ def make_pergraph_correct_step(model: torch.nn.Module):
     return step
 
 
+def make_pool_logits_step(model: torch.nn.Module):
+    """`logits_pool(stacked) -> (logits (B, G, C), y (B, G, T),
+    graph_mask (B, G))` over every batch of a stacked pool, with the
+    running statistics, so a classification metric (ROC-AUC, AP,
+    accuracy) is computed on the host from one read. Eager and
+    forward-only, like the pool eval."""
+
+    @torch.no_grad()
+    def logits_pool(stacked: GraphBatch):
+        with running_statistics(model):
+            outs = [model(pool_entry(stacked, i))
+                    for i in range(pool_size(stacked))]
+        return torch.stack(outs), stacked.y, stacked.graph_mask
+
+    return logits_pool
+
+
+def model_generators(model: torch.nn.Module) -> list:
+    """The generators `model` draws from in `train()` (dropout, random
+    node initialisation): `model.generators()`, or none."""
+    return list(getattr(model, "generators", list)())
+
+
 # ---------------------------------------------------------------------------
 # the pool step: one epoch over a stacked pool
 # ---------------------------------------------------------------------------
@@ -436,6 +498,11 @@ class _GraphedPoolStep(_PoolBuffers):
         # graph's pool, at the same addresses in every replay
         opt.zero_grad(set_to_none=True)
         self.graph = torch.cuda.CUDAGraph()
+        # a generator the capture draws from must be registered before it
+        # starts: each replay then advances its offset, so every replay
+        # draws new masks (an unregistered generator fails the capture)
+        for gen in model_generators(model):
+            self.graph.register_generator_state(gen)
         with torch.cuda.graph(self.graph):
             self._loss = train_step(model, opt, self.static, loss_fn)
 
@@ -456,6 +523,7 @@ def _snapshot(model, opt) -> dict:
         opt_state={p: {k: v.clone() for k, v in s.items()
                        if isinstance(v, torch.Tensor)}
                    for p, s in opt.state.items()},
+        rng=[g.get_state() for g in model_generators(model)],
     )
 
 
@@ -476,3 +544,5 @@ def _restore_in_place(model, opt, snapshot) -> None:
                 v.zero_()  # state the warm-up created: Adam starts at 0
             else:
                 v.copy_(saved[k])
+    for g, state in zip(model_generators(model), snapshot["rng"]):
+        g.set_state(state)

@@ -1,14 +1,22 @@
-"""Carry a flax NestedGINEff state into the PyTorch model.
+"""Carry a flax model state (NestedGINEff, PPGN, OgbGNN) into the
+PyTorch model.
 
 The flax `params` and `batch_stats` trees arrive as nested dicts of numpy
 arrays (the caller converts; this module imports no JAX). Names map
-one to one, with three rules:
-  * flax creates each conv's MLP in the parent scope, as `MLP_<i>`; here
-    it lives inside its conv: `MLP_<i>` -> `conv<i+1>.mlp`;
-  * leaf names: `kernel` -> `weight` (transposed: flax keeps (in, out),
-    nn.Linear (out, in)), `scale` and `embedding` -> `weight`, batch
-    statistics `mean`/`var` -> `running_mean`/`running_var`;
-  * everything else keeps its name (`z_initial`, `eps`, `bias`, ...).
+one to one, with these rules:
+  * flax creates each NestedGINEff conv's MLP in the parent scope, as a
+    top-level `MLP_<i>`; here it lives inside its conv: `MLP_<i>` ->
+    `conv<i+1>.mlp` (only that exact top-level name: OgbGNN's
+    `mlp_virtualnode_<i>` keeps its name);
+  * a `FeatureSumEncoder` table `emb_<i>/embedding` is the encoder's
+    parameter `emb_<i>`;
+  * leaf names: `kernel` -> `weight` (a Dense kernel transposed: flax
+    keeps (in, out), nn.Linear (out, in); a 1-D conv kernel permuted from
+    flax's (width, in, out) to nn.Conv1d's (out, in, width)), `scale` and
+    `embedding` -> `weight`, batch statistics `mean`/`var` ->
+    `running_mean`/`running_var`;
+  * everything else keeps its name (`z_initial`, `eps`, `bias`, the LSTM
+    gates `ii` ... `ho`, ...).
 The load is strict: every flax leaf must land on a model tensor of the
 same shape and every model tensor must be filled, or it raises.
 """
@@ -37,6 +45,9 @@ def _torch_key(path, leaf_map) -> str:
     m = re.fullmatch(r"MLP_(\d+)", parts[0])
     if m:
         parts[:1] = [f"conv{int(m.group(1)) + 1}", "mlp"]
+    if (len(parts) > 1 and parts[-1] == "embedding"
+            and re.fullmatch(r"emb_\d+", parts[-2])):
+        return ".".join(parts[:-1])
     parts[-1] = leaf_map.get(parts[-1], parts[-1])
     return ".".join(parts)
 
@@ -48,7 +59,7 @@ def flax_to_state_dict(params: dict, batch_stats: dict) -> dict:
         for path, value in _flatten(tree):
             a = np.asarray(value, np.float32)
             if path[-1] == "kernel":
-                a = a.T
+                a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
             key = _torch_key(path, leaf_map)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key!r}")

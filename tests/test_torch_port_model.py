@@ -290,13 +290,16 @@ def test_loader_is_strict(variant):
 
 
 def test_unported_options_raise():
-    """dropout > 0 and the sharded modes raise; the QM9 fields (ported)
+    """The sharded modes raise; dropout > 0 and the QM9 fields (ported)
     build, and `edge_float_attr` asks for the edge_attr width."""
     base = NestedGINEffConfig(hidden=8, num_layers=1)
-    for kw in (dict(dropout=0.1), dict(halo_axis="x"),
-               dict(edge_shard_axis="x")):
+    for kw in (dict(halo_axis="x"), dict(edge_shard_axis="x")):
         with pytest.raises(NotImplementedError):
             NestedGINEff(dataclasses.replace(base, **kw), device="cpu")
+    dropped = NestedGINEff(dataclasses.replace(base, dropout=0.1),
+                           device="cpu")
+    assert dropped.generators() == [dropped.rng]
+    assert NestedGINEff(base, device="cpu").generators() == []
     qm9 = dataclasses.replace(base, concat_pos=True, node_add_embed_vocab=5,
                               edge_float_attr=True)
     with pytest.raises(ValueError, match="edge_attr_dim"):

@@ -3,21 +3,29 @@
 # (BASELINE.md, "Regenerated canonical battery"; results_archive/*/cmd_input.txt)
 # on one NVIDIA GPU, from the repository root:
 #
-#     bash tools/torch_quality_runs.sh [out_dir]
+#     bash tools/torch_quality_runs.sh [out_dir [name ...]]
 #
 # SR25 (seeds 0 and 1), CSL 5-fold, EXP 10 splits, zinc-cycle t0 (4000
-# graphs, 400 epochs) and QM9 t0 (5000 synthetic molecules, 250 epochs).
+# graphs, 400 epochs), QM9 t0 (5000 synthetic molecules, 250 epochs),
+# and the OGB twin's two rows (results_archive/ogb_tri_gnn: molhiv-shaped,
+# 2000 graphs, 60 epochs, dropout 0.5, triangle label, ROC-AUC;
+# results_archive/ogb_tri_pcba: molpcba-shaped, 8 tasks, emb 128 x 4,
+# dropout 0.3, 40 epochs, AP). Names after out_dir run only those rows.
 # Each run's output goes to <out_dir>/<name>.log (default
 # results/torch_quality); its last two lines and its wall seconds are
 # printed. Exits non-zero if any run failed.
 set -uo pipefail
 out=${1:-results/torch_quality}
+only=" ${*:2} "
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
 run() {
     local name=$1
     shift
+    if [[ "$only" != "  " && "$only" != *" $name "* ]]; then
+        return
+    fi
     local t0=$SECONDS
     if ! python3 -m "$@" > "$out/$name.log" 2>&1; then
         echo "$name FAILED"
@@ -34,4 +42,11 @@ run zinc_cycle escgnn_tpu_torch.run_zinc_cycle --h 3 --target 0 \
     --num_graphs 4000 --epochs 400 --res_dir "$out/zinc_cycle_res"
 run qm9 escgnn_tpu_torch.run_qm9 --target 0 --num_graphs 5000 \
     --epochs 250 --res_dir "$out/qm9_res" --data_dir "$out/qm9_data"
+run ogb_tri_gnn escgnn_tpu_torch.run_ogb_mol --model GNN --synth_label tri \
+    --num_graphs 2000 --epochs 60 --drop_ratio 0.5 \
+    --res_dir "$out/ogb_tri_gnn_res" --data_dir "$out/ogb_data"
+run ogb_tri_pcba escgnn_tpu_torch.run_ogb_mol --dataset ogbg-molpcba \
+    --h 3 --num_layer 4 --emb_dim 128 --drop_ratio 0.3 --epochs 40 \
+    --num_tasks 8 --num_graphs 1200 --synth_label tri --metric ap \
+    --res_dir "$out/ogb_tri_pcba_res" --data_dir "$out/ogb_data"
 exit $status
