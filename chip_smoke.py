@@ -30,6 +30,15 @@ against its plain PyTorch version on the card, then drives these paths:
     captured step from one snapshot, different under dropout and equal
     without; `[small_ogb]`, the card against the CPU; the bench's OgbGNN
     step, 32 graphs in bf16, graphed and eager);
+  * the copy family: `[run_zinc_i2gnn]` (`run_zinc --model I2GNN` at the
+    JAX defaults, 256 x 5, batch 128, h 3, uniform copy blocks, 5 graphed
+    epochs on 1000 molecules) and `[run_zinc_ngnn]`, each with its
+    `[pool_graph]`; `[copy_bucketed]` (one full-width I2GNN batch as
+    uniform and as bucketed copy blocks, loss and gradients compared, then
+    the bucketed pool graphed); `[run_ogb_mol_nppgn]` (NestedPPGN at the
+    OGB twin's widths, its dense per-copy grid reckoned first and the
+    batch cut to fit the card, the cut printed); `[small_copy]`, NGNN,
+    I2GNN and NestedPPGN on the card against the CPU;
   * the expressiveness twins on the checkout's data: `[run_sr]` (SR25
     collisions of the untrained 8 x 64 model, card against CPU),
     `[run_exp]` (EXP cut to 400 graphs, 2 splits x 5 epochs) and
@@ -838,7 +847,8 @@ def run_zinc_twin(work: str, smi: str):
 
 
 def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
-                     kernel=("k1", "segsum_kernel"), rel_tol=(1e-5, 1e-3)):
+                     kernel=("k1", "segsum_kernel"), rel_tol=(1e-5, 1e-3),
+                     batch_transform=None, report=None):
     """`[pool_graph]`: from one state snapshot of `model`, one epoch of a
     twin's train pool (its graphs, spec and model at full width) through
     the graphed pool step and one through eager steps. The first step's
@@ -850,7 +860,9 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     kernel (label, symbol), K1 unless said, is counted by the profiler in
     a graphed epoch: once per step (None: no kernel on the path). Prints
     both ms/step, the device's busy time per step and the launches per
-    eager step; returns the kernel's launches in the graphed epoch."""
+    eager step; returns the kernel's launches in the graphed epoch.
+    `batch_transform` applies to every pooled batch (the bucketed copy
+    layout); `report`, a dict, receives the printed numbers."""
     import numpy as np
 
     from escgnn_tpu_torch.data.prefetch import pool_entry, stacked_batch_pools
@@ -860,7 +872,8 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         train_step,
     )
 
-    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev)
+    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev,
+                                       batch_transform=batch_transform)
     pool = pools[0]
     order = np.random.default_rng(0).permutation(steps)
     init = copy.deepcopy(model.state_dict())
@@ -912,18 +925,22 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     per_eager = _device_kernels(eager_step)
     _, prof = _profiled(eager_step)
     eager_busy = _busy_ms(prof)
+    fields = dict(
+        graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+        graphed_busy_ms_per_step=graphed_busy,
+        eager_busy_ms_per_step=eager_busy,
+        graphed_idle_share=1 - graphed_busy / g_ms,
+        graph_launch_host_ms_per_step=launch_host,
+        eager_idle_share=1 - eager_busy / e_ms,
+        losses_compared=rel_tol is not None, first_loss_rel=rel[0],
+        max_loss_rel=max(rel),
+        graphed_losses=json.dumps(g_losses), eager_losses=json.dumps(e_losses),
+        **per_epoch, device_events_per_graphed_step=graphed_events / steps,
+        launches_per_eager_step=per_eager)
+    if report is not None:
+        report.update(fields)
     _log("pool_graph", twin=twin, steps=steps, capture_s=round(capture_s, 3),
-         graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
-         graphed_busy_ms_per_step=graphed_busy,
-         eager_busy_ms_per_step=eager_busy,
-         graphed_idle_share=1 - graphed_busy / g_ms,
-         graph_launch_host_ms_per_step=launch_host,
-         eager_idle_share=1 - eager_busy / e_ms,
-         losses_compared=rel_tol is not None, first_loss_rel=rel[0],
-         max_loss_rel=max(rel),
-         graphed_losses=json.dumps(g_losses), eager_losses=json.dumps(e_losses),
-         **per_epoch, device_events_per_graphed_step=graphed_events / steps,
-         launches_per_eager_step=per_eager, ok=True)
+         **fields, ok=True)
     return next(iter(per_epoch.values()), 0)
 
 
@@ -1415,6 +1432,314 @@ def run_ogb_mol_twin(work: str, smi: str, dev):
     return k1_graphed
 
 
+def run_copy_zinc_twin(work: str, smi: str, model: str, dev):
+    """`[run_zinc_<model>]`: the ZINC twin's copy path at the JAX driver's
+    defaults (`--model NGNN|I2GNN`: hidden 256 x 5, batch 128, h 3,
+    resistance distances, `--copy_layout uniform`; I2GNN with gated
+    mean-center-side pair pooling) on 1000 synthetic molecules for 3
+    epochs: 800 train graphs, 7 graphed steps per epoch. Then
+    `[pool_graph]` on its train split (read from the run's cache and laid
+    out again) with a fresh model: graphed against eager, no port kernel
+    on this path. Prints the real and padded copy edges per step. Returns
+    what `check_copy_bucketed` needs: the result, the pre-uniform splits,
+    the uniform splits and the spec."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.featurize.cache import cache_path, load_graphs
+    from escgnn_tpu_torch.train.copies import cache_tag, copy_layout_spec
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    name = f"run_zinc_{model.lower()}"
+    argv = ["--model", model, "--num_graphs", "1000", "--epochs", "5",
+            "--num_workers", "2", "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, name)]
+    t0 = time.perf_counter()
+    res = run_zinc.main(argv)
+    seconds = time.perf_counter() - t0
+    args = run_zinc.build_parser().parse_args(argv)
+    steps = -(-800 // args.batch_size)  # 7 at the default batch 128
+    _check_epochs(name, res, steps=steps)
+    spec = res["spec"]
+    splits = {}
+    for split in ("train", "val", "test"):
+        graphs = load_graphs(cache_path(
+            os.path.join(work, "data", "zinc_synth"),
+            f"{split}_n1000_s0_{cache_tag(model, args.h)}"))
+        for g in graphs:
+            g.y = ((g.y - res["mean"]) / res["std"]).astype(np.float32)
+        splits[split] = graphs
+    uniform, uspec, _ = copy_layout_spec(splits, args.batch_size, "uniform")
+    if uspec != spec or spec.copy_nodes == 0:
+        raise AssertionError(f"{name}: spec {spec} != {uspec}")
+    pool = {}
+    check_pool_graph(name, run_zinc.build_model(args, dev), l1_graph_loss,
+                     uniform["train"], spec, args.lr, dev, kernel=None,
+                     report=pool)
+    real_edges = sum(g.num_edges for g in splits["train"]) / steps
+    _log(name, seconds=round(seconds, 3), graphs=1000, steps_per_epoch=steps,
+         hidden=args.hidden, layers=args.layers, batch=args.batch_size,
+         h=args.h, layout=args.copy_layout,
+         featurize_seconds=round(res["featurize_seconds"], 3),
+         **_epoch_fields(res),
+         **{f"pool_{k}": v for k, v in pool.items()},
+         copy_block=json.dumps([spec.copy_nodes, spec.copy_edges]),
+         copies_per_step=(spec.num_segments2 or spec.num_segments),
+         node_slots_per_step=spec.num_nodes,
+         real_copy_edges_per_step=real_edges,
+         padded_copy_edge_slots_per_step=spec.num_edges,
+         edge_slots_over_real=spec.num_edges / real_edges,
+         card=json.dumps(smi), ok=True)
+    return res, splits, uniform, spec
+
+
+def check_copy_bucketed(main_path, smi, dev):
+    """`[copy_bucketed]`: one full-width I2GNN batch of the main path (the
+    first 128 train graphs) as uniform and as bucketed copy blocks
+    (`make_bucket_transform` over the featurized dataset): the train-mode
+    L1 loss agrees at rel 1e-5 and the gradient at 1e-3, the norm of the
+    difference over the norm of the whole gradient, from one set of
+    weights. The bucketed batch holds the rows in another order, so every
+    reduction over the ~150k node rows (BatchNorm's moments, each weight
+    gradient) runs in another order, and the two f32 gradients differ by
+    the rounding of those sums, more at this width than the 1e-4 that
+    `tests/test_torch_port_copies.py` holds them to at a small width. The
+    largest elementwise difference and the worst parameter are printed. Then `[pool_graph]` of the bucketed train
+    pool: its pinned region budgets give every batch
+    one shape, so one captured step replays them all. Prints the padded
+    edge slots of both layouts."""
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.data.batching import pad_and_batch
+    from escgnn_tpu_torch.data.uniform_copies import make_bucket_transform
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    res, splits, uniform, spec = main_path
+    args = run_zinc.build_parser().parse_args(["--model", "I2GNN"])
+    t0 = time.perf_counter()
+    transform, regions = make_bucket_transform(
+        [g for s in splits.values() for g in s], args.batch_size)
+    host = pad_and_batch(uniform["train"][:args.batch_size], spec,
+                         device="cpu")
+    bucketed = transform(host)
+    layout_s = time.perf_counter() - t0
+    model = run_zinc.build_model(args, dev)
+    model.train()
+    init = copy.deepcopy(model.state_dict())
+    out = {}
+    for name, b in (("uniform", host), ("bucketed", bucketed)):
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        b = b.to(dev)
+        loss = l1_graph_loss(model(b), b)
+        loss.backward()
+        out[name] = (loss.item(), {k: p.grad.detach().clone()
+                                   for k, p in model.named_parameters()})
+    (lu, gu), (lb, gb) = out["uniform"], out["bucketed"]
+    loss_rel = abs(lb - lu) / abs(lu)
+    if loss_rel > 1e-5:
+        raise AssertionError(f"copy_bucketed: loss {lb} != uniform {lu}")
+    diff2 = sum(((gb[k] - gu[k]) ** 2).sum().item() for k in gu)
+    grad_rel = math.sqrt(diff2 / sum((v ** 2).sum().item()
+                                     for v in gu.values()))
+    per_param = {k: ((gb[k] - gu[k]).norm() / gu[k].norm().clamp_min(
+        1e-30)).item() for k in gu}
+    worst = max(per_param, key=per_param.get)
+    if grad_rel > 1e-3:
+        raise AssertionError(f"copy_bucketed: gradients differ by {grad_rel} "
+                             f"of their norm")
+    gmax = max(v.abs().max().item() for v in gu.values())
+    grad_err = max((gb[k] - gu[k]).abs().max().item() for k in gu)
+    pool = {}
+    check_pool_graph("run_zinc_i2gnn_bucketed", run_zinc.build_model(args, dev),
+                     l1_graph_loss, uniform["train"], spec, args.lr, dev,
+                     kernel=None, batch_transform=transform, report=pool)
+    real = int(host.edge_mask.sum())
+    _log("copy_bucketed", regions=json.dumps(bucketed.seg_regions),
+         transform_budgets=json.dumps(regions), layout_seconds=layout_s,
+         loss_uniform=lu, loss_bucketed=lb, loss_rel=loss_rel,
+         grad_rel_norm=grad_rel, worst_param=worst,
+         worst_param_rel_norm=per_param[worst],
+         max_abs_grad_err=grad_err, grad_max=gmax, real_edges=real,
+         uniform_edge_slots=spec.num_edges,
+         bucketed_edge_slots=bucketed.num_edges,
+         uniform_node_slots=spec.num_nodes,
+         bucketed_node_slots=bucketed.num_nodes,
+         **{f"pool_{k}": v for k, v in pool.items()},
+         card=json.dumps(smi), ok=True)
+
+
+# autograd keeps about this many (S, M, M, C) grids per regular block (two
+# 2-conv MLPs, their masked outputs, the contiguous product operands, the
+# product, the skip input and output): the reckoning of NestedPPGN's step
+NPPGN_GRIDS_PER_BLOCK = 16
+
+
+def run_nppgn_twin(work: str, smi: str, dev):
+    """`[run_ogb_mol_nppgn]`: `run_ogb_mol --model NestedPPGN` at the
+    twin's widths (emb 300, 6 regular blocks per level, h 4) on 320
+    synthetic molecules with the triangle label for 3 epochs. The dense
+    (S, M, M, C) per-copy grid is reckoned first at the default batch 32
+    (S copies, M the largest copy): when NPPGN_GRIDS_PER_BLOCK grids per
+    block and level exceed 3/4 of the card's memory the batch is halved
+    until they fit, and the cut is printed. Then `[pool_graph]` on its
+    train split (graphed against eager at rel 1e-5 on the first step),
+    and the peak memory of the run."""
+    from escgnn_tpu_torch import run_ogb_mol
+    from escgnn_tpu_torch.data.batching import BatchSpec
+    from escgnn_tpu_torch.train.loop import bce_graph_loss
+
+    argv = ["--model", "NestedPPGN", "--num_graphs", "320", "--epochs", "3",
+            "--synth_label", "tri", "--num_workers", "2",
+            "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, "nppgn")]
+    args = run_ogb_mol.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    splits = run_ogb_mol.build_splits(args)[0]
+    featurize_s = time.perf_counter() - t0
+    graphs = [g for s in splits.values() for g in s]
+    M = run_ogb_mol.max_copy_nodes(graphs)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    reckon = []
+    batch = args.batch_size
+    while True:
+        S = BatchSpec.from_graphs(graphs, batch).num_segments
+        grid = S * M * M * args.emb_dim * 4
+        need = grid * NPPGN_GRIDS_PER_BLOCK * args.num_layer
+        reckon.append(dict(batch=batch, S=S, M=M, grid_gb=grid / 1e9,
+                           step_gb=need / 1e9))
+        if need <= 0.75 * card_bytes or batch == 1:
+            break
+        batch //= 2
+    if batch != args.batch_size:
+        print(f"[run_ogb_mol_nppgn] cut: batch {args.batch_size} -> {batch} "
+              f"(reckoned {reckon[0]['step_gb']:.1f} GB of grids at batch "
+              f"{args.batch_size}, card {card_bytes / 1e9:.1f} GB)",
+              flush=True)
+    argv += ["--batch_size", str(batch)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_ogb_mol.main(argv)
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eps = res["epochs"]
+    losses = [e["loss"] for e in eps]
+    steps = -(-len(splits["train"]) // batch)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"run_ogb_mol_nppgn: losses {losses}")
+    if any(e["steps"] != steps for e in eps):
+        raise AssertionError(f"run_ogb_mol_nppgn: steps "
+                             f"{[e['steps'] for e in eps]}, want {steps}")
+    if not all(0.0 <= e["val"] <= 1.0 for e in eps):
+        raise AssertionError(f"run_ogb_mol_nppgn: val {eps}")
+    args_run = run_ogb_mol.build_parser().parse_args(argv)
+    pool = {}
+    check_pool_graph("run_ogb_mol_nppgn",
+                     run_ogb_mol.build_model(args_run, dev, graphs),
+                     bce_graph_loss, splits["train"], res["spec"], args.lr,
+                     dev, kernel=None, report=pool)
+    _log("run_ogb_mol_nppgn", seconds=round(seconds, 3), graphs=320,
+         emb=args.emb_dim, blocks_per_level=args.num_layer, h=args.h,
+         batch=batch, batch_cut=batch != args.batch_size,
+         reckoning=json.dumps(reckon), steps_per_epoch=steps,
+         featurize_seconds=round(featurize_s, 3),
+         epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+         loss=json.dumps(losses),
+         val_rocauc=json.dumps([e["val"] for e in eps]),
+         best_val=res["best_val"], best_test=res["best_test"],
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]),
+         peak_memory_gb=peak_gb,
+         **{f"pool_{k}": v for k, v in pool.items()},
+         card=json.dumps(smi), ok=True)
+
+
+def check_small_copy(dev):
+    """NGNN (uniform copies), I2GNN (uniform and bucketed copies) and
+    NestedPPGN (ragged) on the card against the CPU on small f32 inputs
+    (6 molecules, hidden 16, 2 layers): eval logits on the running and
+    on the batch statistics, the train-mode loss and every gradient,
+    rtol/atol 1e-4 (gradients: atol 1e-4 of the largest)."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol, synthetic_zinc
+    from escgnn_tpu_torch.data.uniform_copies import make_bucket_transform
+    from escgnn_tpu_torch.featurize.node_subgraphs import (
+        NodeSubgraphConfig,
+        create_node_subgraphs,
+    )
+    from escgnn_tpu_torch.models.i2gnn import I2GNN, I2GNNConfig
+    from escgnn_tpu_torch.models.layers import bn_statistics
+    from escgnn_tpu_torch.models.nested_ppgn import (
+        NestedPPGN,
+        NestedPPGNConfig,
+    )
+    from escgnn_tpu_torch.models.ngnn import NGNN, NGNNConfig
+    from escgnn_tpu_torch.train.copies import (
+        copy_layout_spec,
+        featurize_copies,
+    )
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    raw = synthetic_zinc(6, seed=7)
+    cases = []
+    for model, cls, cfg in (
+            ("NGNN", NGNN, NGNNConfig(num_layers=2, hidden=16, use_rd=True)),
+            ("I2GNN", I2GNN, I2GNNConfig(
+                num_layers=2, hidden=16, use_rd=True,
+                subgraph2_pooling="mean-center-side", gate=True))):
+        feats = featurize_copies(raw, model, 2)
+        uni, spec, _ = copy_layout_spec({"all": feats}, 6, "uniform")
+        host = pad_and_batch(uni["all"], spec, device="cpu")
+        cases.append((model, lambda d, cls=cls, cfg=cfg: cls(
+            cfg, device=d, generator=torch.Generator().manual_seed(3)), host))
+        if model == "I2GNN":
+            cases.append(("I2GNN_bucketed", cases[-1][1],
+                          make_bucket_transform(feats, 6)[0](host)))
+    ogb = [create_node_subgraphs(g, NodeSubgraphConfig(h=2, use_rd=True,
+                                                       keep_orig_adj=True))
+           for g in synthetic_ogb_mol(6, seed=7)]
+    M = max(int(np.bincount(g.extras["node_to_subgraph"]).max()) for g in ogb)
+    pcfg = NestedPPGNConfig(emb_dim=16, num_rb_layers=2, num_tasks=1,
+                            use_rd=True, classify=False,
+                            max_nodes_per_subgraph=M)
+    host = pad_and_batch(ogb, BatchSpec.from_graphs(ogb, 6), device="cpu")
+    host = dataclasses.replace(host, y=torch.from_numpy(
+        np.random.default_rng(7).normal(size=(6, 1)).astype(np.float32)))
+    cases.append(("NestedPPGN", lambda d: NestedPPGN(
+        pcfg, in_dim=ogb[0].x.shape[1], edge_dim=ogb[0].edge_attr.shape[1],
+        device=d, generator=torch.Generator().manual_seed(3)), host))
+
+    def run(build, host, device):
+        m = build(device)
+        b = host.to(device)
+        out = {}
+        m.eval()
+        with torch.no_grad():
+            for running in (True, False):
+                with bn_statistics(m, use_running_average=running):
+                    out[f"eval_running_{running}"] = m(b).cpu()
+        m.train()
+        loss = l1_graph_loss(m(b), b)
+        loss.backward()
+        out["loss"] = loss.detach().cpu()
+        out.update({f"grad {k}": p.grad.cpu()
+                    for k, p in m.named_parameters()})
+        return out
+
+    errs = {}
+    for name, build, host in cases:
+        cpu, gpu = run(build, host, "cpu"), run(build, host, dev)
+        gmax = max(v.abs().max().item() for k, v in cpu.items()
+                   if k.startswith("grad"))
+        errs[name] = max(
+            _check_close(f"small_copy {name} {k}", gpu[k], cpu[k], rtol=1e-4,
+                         atol=1e-4 * gmax if k.startswith("grad") else 1e-4)
+            for k in cpu)
+    _log("small_copy", graphs=6, hidden=16, layers=2,
+         max_abs_err=json.dumps(errs), ok=True)
+
+
 def run_sr_twin(smi: str, dev):
     """`[run_sr]`: the SR25 check at its defaults (untrained, 8 layers x
     64, seed 0, the real graphs from data/sr25) through main(); then the
@@ -1760,6 +2085,13 @@ def main() -> int:
                     "run_zinc_cycle": run_zinc_cycle_twin(work, smi),
                     "run_qm9": run_qm9_twin(work, smi),
                     "run_ogb_mol": run_ogb_mol_twin(work, smi, dev)}
+        # the copy family: this slice's main path, I2GNN, then NGNN, the
+        # bucketed layout and NestedPPGN (no port kernel on these paths)
+        i2gnn = run_copy_zinc_twin(work, smi, "I2GNN", dev)
+        run_copy_zinc_twin(work, smi, "NGNN", dev)
+        check_copy_bucketed(i2gnn, smi, dev)
+        run_nppgn_twin(work, smi, dev)
+    check_small_copy(dev)
     # 10. the expressiveness twins (data from the checkout's data/)
     run_sr_twin(smi, dev)
     run_exp_twin(smi, dev)

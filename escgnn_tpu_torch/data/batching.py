@@ -7,12 +7,16 @@ permutation. The host arrays are bit-equal to the JAX batcher's; only
 the last step differs: `pad_and_batch` hands them over as tensors on the
 requested device.
 
-This package carries the parts of the JAX batcher that the
-NestedGIN_eff drivers run: `BatchSpec.from_graphs` / `BatchSpec.uniform`
-with the `width` and `dedup` encoding layouts, `batch_iterator`, and the
-generic node- and edge-aligned graph extras (QM9's `node_type`). The
-flat layout, packed batches, the copy and k-set levels and their extras
-wait for the slices that need them.
+This package carries the parts of the JAX batcher that the ported
+drivers run: `BatchSpec.from_graphs` / `BatchSpec.uniform` with the
+`width` and `dedup` encoding layouts, `BatchSpec.copy_uniform` (the
+uniform per-copy blocks of `data/uniform_copies.py`), `batch_iterator`,
+the subgraph-copy levels of the copy family (`node_segment`,
+`node_segment2`, `center_idx`, `node_original` and their masks), the
+dense `orig_adj`, and the generic node-, edge- and copy-aligned graph
+extras. The flat layout, packed batches, the k-set levels (8.6) and the
+attention-bias and link-pair extras (8.3) wait for the slices that need
+them and raise, naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -26,15 +30,17 @@ import torch
 from escgnn_tpu_torch.data.container import EXTRAS_PREFIX, GraphBatch, GraphData
 from escgnn_tpu_torch.device import resolve_device
 
-# extras that the JAX batcher folds into dedicated fields and budgets:
-# the ROADMAP queue that brings each family (k-set keys: 8.6)
-_STRUCTURAL_KEYS = {
-    "node_to_subgraph": "8.4", "num_subgraphs": "8.4",
-    "node_to_subgraph2": "8.4", "num_subgraphs2": "8.4",
-    "subgraph2_to_subgraph": "8.4", "center_idx": "8.4",
-    "node_to_original_node": "8.4", "num_original_nodes": "8.4",
-    "orig_adj": "8.4", "assign_2to3": "8.6", "num_assign_2to3": "8.6",
-    "node_valid": "8.4", "edge_valid": "8.4",
+# extras that the JAX batcher folds into dedicated fields and budgets
+_STRUCTURAL_KEYS = frozenset({
+    "node_to_subgraph", "num_subgraphs",
+    "node_to_subgraph2", "num_subgraphs2", "subgraph2_to_subgraph",
+    "center_idx", "node_to_original_node", "num_original_nodes",
+    "orig_adj", "node_valid", "edge_valid",
+})
+# the structural extras not ported yet: the ROADMAP queue that brings each
+# family (k-set keys: 8.6)
+_UNPORTED_KEYS = {
+    "assign_2to3": "8.6", "num_assign_2to3": "8.6",
     "attn_bias": "8.3", "pair_index": "8.3", "pair_label": "8.3",
 }
 
@@ -67,11 +73,23 @@ class BatchSpec:
     # >0: compact the bucket universe per batch — enc_idx is remapped to
     # [0, num_enc_buckets) and `enc_bucket_ids` maps back to table rows
     num_enc_buckets: int = 0
+    # subgraph-copy budgets
+    num_segments: int = 0
+    num_segments2: int = 0
+    num_original: int = 0
+    # dense budgets (NestedPPGN's orig_adj)
     max_nodes_per_graph: int = 0
+    max_segments_per_graph: int = 0
     # uniform layout: node id g*uniform_nodes + i, edge id
     # g*uniform_edges + k
     uniform_nodes: int = 0
     uniform_edges: int = 0
+    # uniform per-copy layout (copy family; `data/uniform_copies.py`):
+    # graphs arrive pre-uniformized, every copy padded to an identical
+    # (copy_nodes, copy_edges) block; num_nodes / num_edges are whole
+    # multiples, so block index == copy segment id batch-wide
+    copy_nodes: int = 0
+    copy_edges: int = 0
 
     @classmethod
     def from_graphs(
@@ -110,6 +128,44 @@ class BatchSpec:
             num_graphs=bs, y_is_node_level=_infer_node_level_y(graphs), **kw
         )
 
+    @classmethod
+    def copy_uniform(
+        cls,
+        graphs: Sequence[GraphData],
+        batch_size: int,
+        enc_layout: str = "width",
+        exact: bool = False,
+    ) -> "BatchSpec":
+        """Uniform per-copy blocks for the copy family (NGNN / I2GNN).
+
+        `graphs` must come from `uniform_copies.uniformize_copies` (each
+        copy padded to the dataset-wide (n_c, e_c) block). Budgets are
+        whole multiples of the block, so the batch reshapes to
+        (C, n_c, ...) with block index == copy segment id; the copy
+        level's segment budget is pinned to the block count. `exact`
+        sizes the block count for exactly this list of graphs."""
+        kw, bs, _ = _spec_budgets(graphs, batch_size, enc_layout)
+        ex0 = graphs[0].extras or {}
+        n_c = int(ex0["num_copy_nodes"])
+        e_c = int(ex0["num_copy_edges"])
+        if exact:
+            c_budget = _round_up(
+                sum(g.num_nodes // n_c for g in graphs) + 1, 8)
+        else:
+            c_max = max(g.num_nodes // n_c for g in graphs)
+            c_budget = _round_up(bs * c_max + 1, 8)
+        kw["num_nodes"] = c_budget * n_c
+        kw["num_edges"] = c_budget * e_c
+        kw["copy_nodes"] = n_c
+        kw["copy_edges"] = e_c
+        if "node_to_subgraph2" in ex0:
+            kw["num_segments2"] = c_budget
+        else:
+            kw["num_segments"] = c_budget
+        return cls(
+            num_graphs=bs, y_is_node_level=_infer_node_level_y(graphs), **kw
+        )
+
 
 def _spec_budgets(graphs, batch_size, enc_layout):
     if not graphs:
@@ -136,7 +192,11 @@ def _infer_node_level_y(graphs) -> bool:
 
 
 def _graph_stats(g: GraphData) -> dict:
-    s = {"nodes": g.num_nodes, "edges": g.num_edges, "enc_w": 0, "enc_rows": 0}
+    ex = g.extras or {}
+    s = {"nodes": g.num_nodes, "edges": g.num_edges, "enc_w": 0, "enc_rows": 0,
+         "segments": int(ex.get("num_subgraphs", 0)),
+         "segments2": int(ex.get("num_subgraphs2", 0)),
+         "original": int(ex.get("num_original_nodes", 0))}
     if g.enc_offsets is not None:
         nnz = np.diff(np.asarray(g.enc_offsets))
         s["enc_w"] = int(nnz.max()) if nnz.size else 0
@@ -219,7 +279,12 @@ def _distinct_bucket_budget(graphs) -> int:
 
 
 def _budgets_from(m: dict, scale: int, enc_layout: str) -> dict:
-    kw = dict(enc_width=0, num_enc_rows=0, max_nodes_per_graph=m["nodes"])
+    kw = dict(enc_width=0, num_enc_rows=0, max_nodes_per_graph=m["nodes"],
+              max_segments_per_graph=m["segments"])
+    for level, key in (("segments", "num_segments"),
+                       ("segments2", "num_segments2"),
+                       ("original", "num_original")):
+        kw[key] = _round_up(scale * m[level], 8) if m[level] else 0
     if m["enc_w"]:
         kw["enc_width"] = _round_up(m["enc_w"], 8)
         if enc_layout == "dedup":
@@ -274,6 +339,14 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
     else:
         if sum(n_sizes) >= spec.num_nodes or sum(e_sizes) > spec.num_edges:
             raise ValueError("graphs exceed the node or edge budget")
+        if spec.copy_nodes and (
+                any(n % spec.copy_nodes for n in n_sizes)
+                or any(e % spec.copy_edges for e in e_sizes)):
+            # consecutive offsets stay block-aligned only if every graph
+            # is a whole number of copy blocks
+            raise ValueError("graphs are not uniformized to the spec's "
+                             f"({spec.copy_nodes}, {spec.copy_edges}) "
+                             "copy blocks")
         node_off = np.concatenate([[0], np.cumsum(n_sizes)])
         edge_off = np.concatenate([[0], np.cumsum(e_sizes)])
     N, E, NG = spec.num_nodes, spec.num_edges, spec.num_graphs
@@ -316,6 +389,18 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
     graph_mask = np.zeros(NG, bool)
     graph_mask[:G] = True
 
+    # uniform per-copy layout: the copies' padding rows and edges are
+    # flagged by the node_valid / edge_valid extras, ANDed into the masks
+    ex0 = graphs[0].extras or {}
+    if "node_valid" in ex0:
+        node_mask &= _pad_rows(
+            [np.asarray(g.extras["node_valid"], bool) for g in graphs],
+            n_sizes, N, node_off)
+    if "edge_valid" in ex0:
+        edge_mask &= _pad_rows(
+            [np.asarray(g.extras["edge_valid"], bool)[perms[i]]
+             for i, g in enumerate(graphs)], e_sizes, E, edge_off)
+
     fields: dict = dict(
         senders=senders,
         receivers=receivers,
@@ -344,28 +429,130 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
             fields["y"] = y
     if graphs[0].enc_offsets is not None and spec.enc_width > 0:
         fields.update(_batch_encoding(graphs, perms, edge_off, spec))
+    if "num_subgraphs" in ex0 and spec.num_segments > 0:
+        fields.update(_batch_segments(graphs, n_sizes, node_off, spec))
+    if "node_to_subgraph2" in ex0 and spec.num_segments2 > 0:
+        fields.update(_batch_segments2(graphs, n_sizes, node_off, spec))
+    if "node_to_original_node" in ex0 and spec.num_original > 0:
+        fields.update(_batch_original(graphs, n_sizes, node_off, spec))
     for k, v in _batch_named_extras(graphs, n_sizes, e_sizes, perms,
                                     node_off, edge_off, spec).items():
         fields[EXTRAS_PREFIX + k] = v
     return fields
 
 
+def _batch_segments(graphs, n_sizes, node_off, spec: BatchSpec) -> dict:
+    """Subgraph-copy level. `segment_graph` / `segment_mask` exist whenever
+    graphs declare `num_subgraphs` (the pair transform has subgraphs as
+    the middle pooling level without a node -> subgraph map);
+    `node_segment` needs `node_to_subgraph` too. Padding nodes carry the
+    out-of-range id S, padding copies the last graph slot."""
+    S = spec.num_segments
+    s_sizes = [int(_ex(g, "num_subgraphs", 0)) for g in graphs]
+    if sum(s_sizes) > S:
+        raise ValueError(f"{sum(s_sizes)} subgraphs, budget {S}")
+    s_off = np.concatenate([[0], np.cumsum(s_sizes)])
+    segment_graph = np.full(S, spec.num_graphs - 1, np.int32)
+    segment_mask = np.zeros(S, bool)
+    for i in range(len(graphs)):
+        segment_graph[s_off[i]:s_off[i + 1]] = i
+    segment_mask[:s_off[-1]] = True
+    out = {"segment_graph": segment_graph, "segment_mask": segment_mask}
+    if "node_to_subgraph" in (graphs[0].extras or {}):
+        node_segment = np.full(spec.num_nodes, S, np.int32)
+        for i, g in enumerate(graphs):
+            ns = node_off[i]
+            node_segment[ns:ns + n_sizes[i]] = (
+                np.asarray(g.extras["node_to_subgraph"]) + s_off[i])
+        out["node_segment"] = node_segment
+    return out
+
+
+def _batch_segments2(graphs, n_sizes, node_off, spec: BatchSpec) -> dict:
+    """(root, neighbour)-pair copy level: node -> pair copy, pair copy ->
+    root subgraph (padding: out of range), and the batched `center_idx`
+    (padding: the last node slot, in range because it is gathered)."""
+    S, S2 = spec.num_segments, spec.num_segments2
+    s_sizes = [int(_ex(g, "num_subgraphs", 0)) for g in graphs]
+    s2_sizes = [int(_ex(g, "num_subgraphs2", 0)) for g in graphs]
+    if sum(s2_sizes) > S2:
+        raise ValueError(f"{sum(s2_sizes)} pair copies, budget {S2}")
+    s_off = np.concatenate([[0], np.cumsum(s_sizes)])
+    s2_off = np.concatenate([[0], np.cumsum(s2_sizes)])
+    node_segment2 = np.full(spec.num_nodes, S2, np.int32)
+    segment2_parent = np.full(S2, S, np.int32)
+    segment2_mask = np.zeros(S2, bool)
+    center = np.full((S2, 2), spec.num_nodes - 1, np.int32)
+    for i, g in enumerate(graphs):
+        ex = g.extras
+        ns = node_off[i]
+        node_segment2[ns:ns + n_sizes[i]] = (
+            np.asarray(ex["node_to_subgraph2"]) + s2_off[i])
+        segment2_parent[s2_off[i]:s2_off[i + 1]] = (
+            np.asarray(ex["subgraph2_to_subgraph"]) + s_off[i])
+        if "center_idx" in ex:
+            center[s2_off[i]:s2_off[i + 1]] = (
+                np.asarray(ex["center_idx"]) + node_off[i])
+    segment2_mask[:s2_off[-1]] = True
+    return {
+        "node_segment2": node_segment2,
+        "segment2_parent": segment2_parent,
+        "segment2_mask": segment2_mask,
+        "center_idx": center,
+    }
+
+
+def _batch_original(graphs, n_sizes, node_off, spec: BatchSpec) -> dict:
+    """Copy node -> original node (padding: out of range) and the
+    original-node mask."""
+    o_sizes = [int(_ex(g, "num_original_nodes", 0)) for g in graphs]
+    if sum(o_sizes) > spec.num_original:
+        raise ValueError(f"{sum(o_sizes)} original nodes, budget "
+                         f"{spec.num_original}")
+    o_off = np.concatenate([[0], np.cumsum(o_sizes)])
+    node_original = np.full(spec.num_nodes, spec.num_original, np.int32)
+    for i, g in enumerate(graphs):
+        ns = node_off[i]
+        node_original[ns:ns + n_sizes[i]] = (
+            np.asarray(g.extras["node_to_original_node"]) + o_off[i])
+    om = np.zeros(spec.num_original, bool)
+    om[:sum(o_sizes)] = True
+    return {"node_original": node_original, "original_mask": om}
+
+
+def _ex(g: GraphData, key: str, default=None):
+    return (g.extras or {}).get(key, default)
+
+
 def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
                         spec):
     """Generic extras: node-aligned ones padded like x, edge-aligned ones
-    permuted like edge_attr; per-graph scalars (`num_*`) are skipped, as
-    the JAX batcher does. The copy-level, k-set, dense and pair extras
-    raise, naming their ROADMAP queue."""
+    permuted like edge_attr, copy-aligned ones (one row per subgraph
+    copy, e.g. the node-level targets of the copy models) padded to the
+    segment budget, and `orig_adj` stacked into (G, K, K); per-graph
+    scalars (`num_*`) and the copy-level keys that have their own fields
+    are skipped, as the JAX batcher does. The k-set, attention-bias and
+    pair extras raise, naming their ROADMAP queue."""
     out: dict = {}
     ex0 = graphs[0].extras or {}
     for key in ex0:
         queue = ("8.6" if key.startswith(("kset", "num_kset"))
-                 else _STRUCTURAL_KEYS.get(key))
+                 else _UNPORTED_KEYS.get(key))
         if queue:
             raise NotImplementedError(
                 f"extras[{key!r}]: its batch fields are ROADMAP queue {queue}")
+    seg_sizes = [int(_ex(g, "num_subgraphs", 0)) for g in graphs]
+    seg_off = np.concatenate([[0], np.cumsum(seg_sizes)])
     for key, v0 in ex0.items():
-        if key.startswith("num_"):
+        if key == "orig_adj":
+            K = spec.max_segments_per_graph
+            adj = np.zeros((spec.num_graphs, K, K), np.asarray(v0).dtype)
+            for i, g in enumerate(graphs):
+                a = np.asarray(g.extras[key])
+                adj[i, :a.shape[0], :a.shape[1]] = a
+            out[key] = adj
+            continue
+        if key in _STRUCTURAL_KEYS or key.startswith("num_"):
             continue
         v0 = np.asarray(v0)
         if v0.ndim >= 1 and v0.shape[0] == graphs[0].num_nodes:
@@ -376,6 +563,10 @@ def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
                 [np.asarray(g.extras[key])[perms[i]]
                  for i, g in enumerate(graphs)],
                 e_sizes, spec.num_edges, edge_off)
+        elif (v0.ndim >= 1 and seg_sizes[0]
+              and v0.shape[0] == seg_sizes[0] and spec.num_segments > 0):
+            out[key] = _pad_rows([np.asarray(g.extras[key]) for g in graphs],
+                                 seg_sizes, spec.num_segments, seg_off)
         else:
             raise ValueError(
                 f"extras[{key!r}] has no batching rule "
@@ -410,6 +601,8 @@ def batch_from_arrays(arrays: dict, spec: BatchSpec, device="cuda",
     return GraphBatch(
         nodes_per_graph=spec.uniform_nodes or None,
         edges_per_graph=spec.uniform_edges or None,
+        nodes_per_seg=spec.copy_nodes or None,
+        edges_per_seg=spec.copy_edges or None,
     ).with_tensors({k: put(v) for k, v in arrays.items()})
 
 

@@ -64,13 +64,18 @@ class GraphBatch:
     the sorted-CSR view `enc_edge_perm`/`enc_row_sorted` (the input of the
     sorted-segment-sum kernel), the compact bucket ids `enc_bucket_ids`
     and, where it fits, the host count matrix `enc_countmat`. `extras`
-    maps names to tensors padded like `x` (node-aligned) or permuted like
-    `edge_attr` (edge-aligned).
+    maps names to tensors padded like `x` (node-aligned), permuted like
+    `edge_attr` (edge-aligned), padded to the copy budget (copy-aligned)
+    or stacked per graph (`orig_adj`). The copy levels follow the JAX
+    package's padding: padding nodes carry an out-of-range segment id,
+    padding copies an out-of-range parent, and `center_idx` padding
+    points at the last node slot (gathered, never scattered).
 
     `tensors()` lists every tensor by a flat name (an extra as
     `extras.<name>`) and `with_tensors` builds the batch back from such a
     mapping, so copies, stacks and pool entries carry the extras with the
-    fields.
+    fields. The static layout ints (`nodes_per_graph`, `nodes_per_seg`,
+    `seg_regions`, ...) ride along unchanged.
     """
 
     x: Optional[torch.Tensor] = None
@@ -92,11 +97,31 @@ class GraphBatch:
     enc_row_sorted: Optional[torch.Tensor] = None
     enc_bucket_ids: Optional[torch.Tensor] = None
     enc_countmat: Optional[torch.Tensor] = None
+    # subgraph-copy level (NGNN two-level pooling)
+    node_segment: Optional[torch.Tensor] = None  # node -> subgraph copy
+    segment_graph: Optional[torch.Tensor] = None  # copy -> graph
+    segment_mask: Optional[torch.Tensor] = None
+    # (root, neighbor)-pair copy level (I2GNN three-level pooling)
+    node_segment2: Optional[torch.Tensor] = None  # node -> pair copy
+    segment2_parent: Optional[torch.Tensor] = None  # pair copy -> subgraph
+    segment2_mask: Optional[torch.Tensor] = None
+    center_idx: Optional[torch.Tensor] = None  # (S2, 2) (root, nbr) nodes
+    # original-node level (I2GNN mean-context pooling)
+    node_original: Optional[torch.Tensor] = None  # copy node -> orig node
+    original_mask: Optional[torch.Tensor] = None
     extras: Optional[dict] = None
     # uniform layout (static sizes): node id g*nodes_per_graph + i, edge
     # id g*edges_per_graph + k
     nodes_per_graph: Optional[int] = None
     edges_per_graph: Optional[int] = None
+    # uniform per-copy layout (`data/uniform_copies.py`): every copy
+    # occupies an identical (nodes_per_seg, edges_per_seg) block, block
+    # index == copy segment id
+    nodes_per_seg: Optional[int] = None
+    edges_per_seg: Optional[int] = None
+    # two-size bucketed copy layout ((Cs, n_s, e_s), (Cl, n_l, e_l)): a
+    # small region of Cs blocks, then a large region of Cl blocks
+    seg_regions: Optional[tuple] = None
 
     def tensors(self) -> dict:
         """The tensors that are set, by flat name: fields by their name,

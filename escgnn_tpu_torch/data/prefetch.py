@@ -13,6 +13,12 @@
     the host but its order vector. `stacked_batch_pools` draws the JAX
     package's permutations from the same seed, so both packages train on
     the same batch sequence.
+
+`batch_transform` (host batch -> host batch, a host batch being a
+`GraphBatch` whose tensors lie on the CPU) applies to every batch before
+it is stacked or copied to the card: the two-size bucketed copy layout
+(`data/uniform_copies.py` `make_bucket_transform`), whose pinned region
+budgets give every transformed batch one shape.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 from escgnn_tpu_torch.data.batching import (
     BatchSpec,
@@ -73,28 +80,46 @@ def prefetched_batches(
         raise err[0]
 
 
-def _nbytes(arrays: dict) -> int:
-    return sum(a.nbytes for a in arrays.values())
+def _nbytes(batch: GraphBatch) -> int:
+    return sum(t.nbytes for t in batch.tensors().values())
+
+
+def _host_batches(graphs, spec: BatchSpec, batch_transform=None) -> list:
+    """The padded batches of `graphs`, in order, as host batches, each
+    through `batch_transform` when one is given."""
+    out = [batch_from_arrays(a, spec, "cpu")
+           for a in batch_iterator(graphs, spec, device=None)]
+    return out if batch_transform is None else [batch_transform(b)
+                                                for b in out]
+
+
+def _stack_host(batches: list) -> GraphBatch:
+    first = batches[0]
+    return first.with_tensors({
+        k: torch.stack([b.tensors()[k] for b in batches])
+        for k in first.tensors()})
 
 
 class _CachedBatches:
     """Padded batches of a fixed split: on the card when they fit in
-    `pin_bytes`, else kept as host arrays and copied on each access."""
+    `pin_bytes`, else kept on the host and copied through pinned memory
+    on each access."""
 
-    def __init__(self, host: list, spec: BatchSpec, device, pin: bool):
-        self._spec = spec
+    def __init__(self, host: list, device, pin: bool):
         self._device = device
         self._pin = pin
-        self._batches = ([batch_from_arrays(a, spec, device) for a in host]
-                         if pin else host)
+        self._batches = [b.to(device) for b in host] if pin else host
 
     def __len__(self):
         return len(self._batches)
 
     def __getitem__(self, i) -> GraphBatch:
         b = self._batches[i]
-        return b if self._pin else batch_from_arrays(b, self._spec,
-                                                     self._device, pin=True)
+        if self._pin or self._device.type != "cuda":
+            return b.to(self._device)
+        return b.with_tensors({
+            k: v.pin_memory().to(self._device, non_blocking=True)
+            for k, v in b.tensors().items()})
 
     def __iter__(self):
         for i in range(len(self._batches)):
@@ -102,27 +127,24 @@ class _CachedBatches:
 
 
 def materialized_batches(graphs: Sequence[GraphData], spec: BatchSpec,
-                         device="cuda", pin_bytes: int = 256 * 2**20):
+                         device="cuda", pin_bytes: int = 256 * 2**20,
+                         batch_transform=None):
     """Pad a fixed set of graphs once and return a reusable sequence of
     batches: evaluation sets never reshuffle, so padding them every epoch
     only burns host time."""
     device = resolve_device(device)
-    host = list(batch_iterator(graphs, spec, device=None))
-    total = sum(_nbytes(a) for a in host)
-    return _CachedBatches(host, spec, device, pin=total <= pin_bytes)
-
-
-def _stack_host(batches: list) -> dict:
-    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    host = _host_batches(graphs, spec, batch_transform)
+    total = sum(_nbytes(b) for b in host)
+    return _CachedBatches(host, device, pin=total <= pin_bytes)
 
 
 def stack_split(graphs: Sequence[GraphData], spec: BatchSpec,
-                device="cuda") -> GraphBatch:
+                device="cuda", batch_transform=None) -> GraphBatch:
     """Pad a fixed split once and stack its batches along a new leading
     axis on `device`: each eval or refresh pass over it then reads the
-    card only."""
-    host = list(batch_iterator(graphs, spec, device=None))
-    return batch_from_arrays(_stack_host(host), spec, device)
+    card only. Every transformed batch must have one shape."""
+    return _stack_host(_host_batches(graphs, spec, batch_transform)).to(
+        device)
 
 
 def pool_size(stacked: GraphBatch) -> int:
@@ -143,6 +165,7 @@ def stacked_batch_pools(
     max_total_bytes: int = 4 * 2**30,
     compress: bool = False,
     device="cuda",
+    batch_transform=None,
 ) -> tuple[list, int]:
     """`k` membership-shuffled stacked train pools on `device` and the
     number of batches per epoch.
@@ -152,7 +175,9 @@ def stacked_batch_pools(
     Cycling pools across epochs (pool (epoch-1) % k, its batches in a
     fresh order each epoch) stands in for re-forming batches every epoch
     at a bounded copy cost. All pools live on the card at once, so k is
-    cut to keep them under `max_total_bytes`."""
+    cut to keep them under `max_total_bytes`. `batch_transform` (the
+    bucketed copy layout, pinned budgets) applies to every batch of
+    every pool, so all pools keep one shape."""
     if compress:
         raise NotImplementedError(
             "compress=True: the compressed pools (data/compress.py) are "
@@ -163,7 +188,7 @@ def stacked_batch_pools(
     kk = max(1, k)
     while len(pools) < kk:
         shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
-        host = _stack_host(list(batch_iterator(shuffled, spec, device=None)))
+        host = _stack_host(_host_batches(shuffled, spec, batch_transform))
         if not pools:
             per_pool = _nbytes(host)
             fit = max(1, int(max_total_bytes // max(per_pool, 1)))
@@ -172,6 +197,6 @@ def stacked_batch_pools(
                       f"({per_pool / 2**20:.0f} MB per pool, "
                       f"budget {max_total_bytes / 2**30:.1f} GB)")
                 kk = fit
-        pools.append(batch_from_arrays(host, spec, device))
+        pools.append(host.to(device))
     num_batches = (len(graphs) + spec.num_graphs - 1) // spec.num_graphs
     return pools, num_batches

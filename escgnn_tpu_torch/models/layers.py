@@ -68,6 +68,14 @@ class TorchEmbed(nn.Embedding):
         return embed_take(self.weight, ids)
 
 
+class EmbedMM(TorchEmbed):
+    """The JAX package's `EmbedMM` (flax param path `embedding`, N(0, 1)
+    init), whose lookup there is a one-hot matmul so that its backward
+    runs on the MXU. Here it is `F.embedding`: the same values, and its
+    backward sums the output gradients per id, as the one-hot product's
+    transpose does."""
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over rows with a validity mask or float row weights.
 
@@ -242,6 +250,52 @@ def _dense_local_aggregate(x, senders, receivers, edge_emb, edge_mask, n_u):
     acc = torch.promote_types(msg.dtype, torch.float32)
     agg = torch.einsum("gen,geh->gnh", oh_r.to(acc), msg.to(acc))
     return agg.reshape(N, H).to(cdt)
+
+
+def _dense_local_scatter(msg, receivers, edge_mask, n_u, num_nodes):
+    """Scatter-add per-edge messages to nodes on the uniform block layout
+    as one batched one-hot product (the scatter half of
+    `_dense_local_aggregate`, for a conv whose gather side is
+    irregular); sums in f32, result in the messages' dtype."""
+    E, H = msg.shape
+    G = num_nodes // n_u
+    e_u = E // G
+    if G * n_u != num_nodes or G * e_u != E:
+        raise ValueError(f"not a uniform block layout: {(num_nodes, E, n_u)}")
+    ar = torch.arange(n_u, device=receivers.device)
+    recv_l = (receivers.long() % n_u).reshape(G, e_u, 1)
+    oh_r = (recv_l == ar).to(msg.dtype) * edge_mask.reshape(G, e_u, 1).to(
+        msg.dtype)
+    acc = torch.promote_types(msg.dtype, torch.float32)
+    agg = torch.einsum("gen,geh->gnh", oh_r.to(acc),
+                       msg.reshape(G, e_u, H).to(acc))
+    return agg.reshape(num_nodes, H).to(msg.dtype)
+
+
+def _dense_local_aggregate_regions(x, senders, receivers, edge_emb,
+                                   edge_mask, regions):
+    """`_dense_local_aggregate` over the two-size bucketed copy layout
+    (`GraphBatch.seg_regions`): the node and edge arrays are [small region
+    | large region], each a uniform block layout of its own, so the same
+    batched products run once per region."""
+    (cs, n_s, e_s), (cl, n_l, e_l) = regions
+    outs = []
+    n_off = e_off = 0
+    for c, n_u, e_u in ((cs, n_s, e_s), (cl, n_l, e_l)):
+        if c == 0:
+            continue
+        ne, ee = c * n_u, c * e_u
+        outs.append(_dense_local_aggregate(
+            x[n_off:n_off + ne],
+            senders[e_off:e_off + ee] - n_off,
+            receivers[e_off:e_off + ee] - n_off,
+            edge_emb[e_off:e_off + ee],
+            edge_mask[e_off:e_off + ee],
+            n_u,
+        ))
+        n_off += ne
+        e_off += ee
+    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
 
 
 class GINEConv(nn.Module):

@@ -13,8 +13,10 @@ of `escgnn_tpu/models/ogb_gnn.py`).
     broadcast to every node and updated from the add-pooled nodes, BN,
     dropout (no ReLU on the last layer), residual, JK last/sum, random
     node initialisation, random-walk return probabilities.
-  * `OgbGNN`: graph pooling (sum, mean, max, attention, combine, set2set,
-    sort) and the prediction head.
+  * `OgbGNN`: subgraph pooling over two-level copy batches (sum, mean,
+    max, attention, center, combine; the virtual node then reaches only
+    each copy's root under center pooling), graph pooling (sum, mean,
+    max, attention, combine, set2set, sort) and the prediction head.
 
 The structural embedding: with dropout 0 on the dedup layout the z MLP
 runs on the R unique rows with multiplicity-weighted BN and is expanded
@@ -23,9 +25,7 @@ runs on the E edges (dropout would correlate edges that share a row).
 K1 is the backward of the expansion either way.
 
 Dropout and random node initialisation draw from the model's generator
-`rng` (seeded with `rng_seed`) in `train()` only. Subgraph pooling over
-two-level copy batches (`_subpool`, the center virtual node) comes with
-the copy family (ROADMAP 8.4); the port's batches have no copy level.
+`rng` (seeded with `rng_seed`) in `train()` only.
 """
 
 from __future__ import annotations
@@ -47,8 +47,10 @@ from escgnn_tpu_torch.models.layers import (
     TorchDense,
     _dense_local_aggregate,
 )
+from escgnn_tpu_torch.models.ngnn import copy_roots
 from escgnn_tpu_torch.models.pooling import Set2Set, global_sort_pool
 from escgnn_tpu_torch.ops.segment import (
+    masked_ids,
     pool_nodes_to_graphs,
     segment_max,
     segment_mean,
@@ -67,6 +69,7 @@ ATOM_FEATURE_DIMS = (119, 4, 12, 12, 10, 6, 6, 2, 2)
 BOND_FEATURE_DIMS = (5, 6, 2)
 PPA_EDGE_DIM = 7
 POOLINGS = ("sum", "mean", "max", "attention", "combine", "set2set", "sort")
+SUBGRAPH_POOLINGS = ("sum", "mean", "max", "attention", "center", "combine")
 
 
 class FeatureSumEncoder(nn.Module):
@@ -149,6 +152,10 @@ class OgbGNNConfig:
     jk: str = "last"  # last | sum
     # sum | mean | max | attention | combine | set2set | sort
     graph_pooling: str = "mean"
+    # applied between node and graph level when the batch carries
+    # subgraph-copy segments (node_segment / segment_graph):
+    # sum | mean | max | attention | center | combine
+    subgraph_pooling: str = "mean"
     sort_k: int = 20
     z_dim: int = 1800
     # random node initialisation: h0 += U(-1, 1), in train() only
@@ -167,17 +174,13 @@ def _check_config(cfg: OgbGNNConfig) -> None:
     if cfg.graph_pooling not in POOLINGS:
         raise ValueError(f"graph_pooling {cfg.graph_pooling!r}: one of "
                          f"{POOLINGS}")
+    if cfg.subgraph_pooling not in SUBGRAPH_POOLINGS:
+        raise ValueError(f"subgraph_pooling {cfg.subgraph_pooling!r}: one "
+                         f"of {SUBGRAPH_POOLINGS}")
     if cfg.jk not in ("last", "sum"):
         raise ValueError(f"jk {cfg.jk!r}: last or sum")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(cfg.compute_dtype)
-
-
-def _no_copy_level(batch: GraphBatch) -> None:
-    if getattr(batch, "node_segment", None) is not None:
-        raise NotImplementedError(
-            "subgraph pooling over two-level copy batches (_subpool, "
-            "center virtual node) is ROADMAP queue 8.4")
 
 
 class GNNNodeEfficient(nn.Module):
@@ -215,7 +218,6 @@ class GNNNodeEfficient(nn.Module):
 
     def forward(self, batch: GraphBatch):
         cfg = self.cfg
-        _no_copy_level(batch)
         d, N, G = cfg.emb_dim, batch.num_nodes, batch.num_graphs
         node_mask, edge_mask = batch.node_mask, batch.edge_mask
 
@@ -245,9 +247,17 @@ class GNNNodeEfficient(nn.Module):
         if cfg.virtual_node:
             vn = torch.zeros(G, d, dtype=h.dtype, device=h.device) \
                 + self.virtualnode_embedding
+        two_level = batch.node_segment is not None
+        # with center subgraph pooling on a two-level batch the virtual
+        # node reaches only each copy's root
+        center_vn = (cfg.virtual_node and cfg.subgraph_pooling == "center"
+                     and two_level)
+        if center_vn:
+            is_root = copy_roots(node_mask, batch.node_segment,
+                                 batch.segment_mask.shape[0])[1]
         cdt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                else torch.float32)
-        n_u = batch.nodes_per_graph
+        n_u = None if two_level else batch.nodes_per_graph
         z_c = z_emb.to(cdt)
         h_list = [h]
         for layer in range(cfg.num_layers):
@@ -258,6 +268,8 @@ class GNNNodeEfficient(nn.Module):
                     vn_nodes = vn[:, None, :].expand(G, n_u, d).reshape(N, d)
                 else:
                     vn_nodes = vn.index_select(0, batch.node_graph.long())
+                if center_vn:
+                    vn_nodes = torch.where(is_root[:, None], vn_nodes, 0.0)
                 hcur = hcur + vn_nodes
                 h_list[layer] = hcur
             h = getattr(self, f"conv{layer}")(hcur.to(cdt), batch, z_c, n_u)
@@ -303,6 +315,13 @@ class OgbGNN(nn.Module):
         self.rng = torch.Generator(device=device).manual_seed(rng_seed)
         self.gnn_node = GNNNodeEfficient(cfg, self.rng, generator=g)
         head_in = d
+        if cfg.subgraph_pooling == "attention":
+            self.sub_gate_0 = TorchDense(d, 2 * d, generator=g)
+            self.sub_gate_bn = MaskedBatchNorm(2 * d)
+            self.sub_gate_1 = TorchDense(2 * d, 1, generator=g)
+        elif cfg.subgraph_pooling == "combine":
+            self.sub_nn_0 = TorchDense(15 * d, d, generator=g)
+            self.sub_nn_1 = TorchDense(d, d, generator=g)
         if cfg.graph_pooling == "attention":
             self.gate_0 = TorchDense(d, 2 * d, generator=g)
             self.gate_bn = MaskedBatchNorm(2 * d)
@@ -332,12 +351,59 @@ class OgbGNN(nn.Module):
         return ([self.rng] if self.cfg.dropout > 0 or self.cfg.rni
                 else [])
 
+    def _subpool(self, h, batch: GraphBatch):
+        """Node -> subgraph-copy pooling (sum, mean, max, the copy's root,
+        attention, or combine: [mean, max, min, std, root] x [identity,
+        amplification, attenuation] through sub_nn)."""
+        cfg = self.cfg
+        mask = batch.node_mask
+        ids = masked_ids(batch.node_segment, mask)
+        S = batch.segment_mask.shape[0]
+        pool = cfg.subgraph_pooling
+
+        def center(x):
+            return x[copy_roots(mask, batch.node_segment, S)[0]]
+
+        if pool == "sum":
+            return segment_sum(h, ids, S, mask=mask)
+        if pool == "mean":
+            return segment_mean(h, ids, S, mask=mask)
+        if pool == "max":
+            return segment_max(h, ids, S, mask=mask)
+        if pool == "center":
+            return center(h)
+        if pool == "attention":
+            gate = self.sub_gate_bn(self.sub_gate_0(h), mask)
+            gate = self.sub_gate_1(F.relu(gate))[:, 0]
+            w = segment_softmax(gate, ids, S, mask=mask)
+            return segment_sum(h * w[:, None], ids, S, mask=mask)
+        agg = torch.cat([segment_mean(h, ids, S, mask=mask),
+                         segment_max(h, ids, S, mask=mask),
+                         segment_min(h, ids, S, mask=mask),
+                         _std_pool(h, ids, S, mask), center(h)], dim=-1)
+        deg = segment_sum(mask.to(h.dtype), ids, S)[:, None]
+        logd = torch.log(deg + 1.0)
+        avg_logd = (logd * deg).sum() / deg.sum().clamp_min(1.0)
+        g = torch.cat([agg, agg * logd / avg_logd,
+                       agg * avg_logd / (logd + 1e-6)], dim=-1)
+        return F.relu(self.sub_nn_1(F.relu(self.sub_nn_0(g))))
+
     def forward(self, batch: GraphBatch):
         cfg = self.cfg
         h = self.gnn_node(batch)
         ids, G, mask = batch.node_graph, batch.num_graphs, batch.node_mask
+        two_level = batch.node_segment is not None
+        if two_level:
+            # two-level (copy) batch: subgraph pooling first, then the
+            # graph pooling below runs over the copy rows
+            h = self._subpool(h, batch)
+            mask = batch.segment_mask
+            ids = masked_ids(batch.segment_graph, mask)
         pool = cfg.graph_pooling
-        if pool in ("sum", "mean"):
+        if pool in ("sum", "mean") and two_level:
+            fn = segment_sum if pool == "sum" else segment_mean
+            g = fn(h, ids, G, mask=mask)
+        elif pool in ("sum", "mean"):
             g = pool_nodes_to_graphs(h, batch, reduce=pool)
         elif pool == "max":
             g = segment_max(h, ids, G, mask=mask)
@@ -360,7 +426,10 @@ class OgbGNN(nn.Module):
                            agg * avg_logd / (logd + 1e-6)], dim=-1)
             g = F.relu(self.graph_nn_1(F.relu(self.graph_nn_0(g))))
         elif pool == "set2set":
-            g = self.set2set(h, batch)
+            g = self.set2set(h, batch, ids=ids, mask=mask)
+        elif two_level:
+            raise ValueError("graph_pooling='sort' supports flat batches "
+                             "only")
         else:  # sort: top-k rows -> per-slot dense -> MaxPool1d(2, 2) ->
             # Conv1d(16, 32, 5) -> flatten
             k = cfg.sort_k

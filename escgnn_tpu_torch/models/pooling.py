@@ -72,8 +72,11 @@ class Set2Set(nn.Module):
         self.processing_steps = processing_steps
         self.lstm = LSTMCell(2 * features, features, generator=generator)
 
-    def forward(self, x, batch: GraphBatch):
-        ids, mask = batch.node_graph, batch.node_mask
+    def forward(self, x, batch: GraphBatch, ids=None, mask=None):
+        # ids / mask default to node -> graph; a two-level batch passes
+        # its copy -> graph ids
+        ids = batch.node_graph if ids is None else ids
+        mask = batch.node_mask if mask is None else mask
         G, F = batch.num_graphs, x.shape[-1]
         carry = (x.new_zeros(G, F), x.new_zeros(G, F))
         q_star = x.new_zeros(G, 2 * F)

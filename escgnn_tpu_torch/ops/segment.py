@@ -1,8 +1,10 @@
-"""Masked segment reductions (counterpart of `escgnn_tpu/ops/segment.py`
-without `pool_copy_blocks`, which comes with the copy family).
+"""Masked segment reductions (counterpart of `escgnn_tpu/ops/segment.py`).
 
 Every op takes an explicit validity mask instead of relying on
 out-of-range ids being dropped, so padding policy lives in one place.
+The copy levels of a batch give their padding rows an out-of-range id,
+which JAX drops and `index_add_` refuses: `masked_ids` sends the masked
+rows to segment 0, where their neutral values change nothing.
 Max and min fill masked rows with the dtype's finite extreme before the
 reduce (`scatter_reduce` with `include_self=False`, whose gradient splits
 a tie evenly, as JAX's does) and give `empty_value` for empty segments.
@@ -21,6 +23,12 @@ def _apply_mask(values, mask: Optional[torch.Tensor], fill=0.0):
     m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
     return torch.where(m, values, torch.full((), fill, dtype=values.dtype,
                                              device=values.device))
+
+
+def masked_ids(segment_ids, mask: torch.Tensor):
+    """`segment_ids` with the rows `mask` drops sent to segment 0, so an
+    out-of-range padding id never reaches a scatter or a gather."""
+    return torch.where(mask, segment_ids, torch.zeros_like(segment_ids))
 
 
 def segment_sum(values, segment_ids, num_segments: int,
@@ -115,3 +123,48 @@ def pool_nodes_to_graphs(values, batch, reduce: str = "sum"):
         cnt = segment_sum(mask.to(s.dtype), batch.node_graph, G).clamp_min(1.0)
         return s / cnt.reshape((G,) + (1,) * (s.dim() - 1))
     raise ValueError(reduce)
+
+
+def _block_reduce(values, mask, c: int, n: int, reduce: str):
+    """(c * n, ...) rows -> (c, ...): masked sum or mean over each block of
+    n rows, summed in f32 (as `jnp.sum` sums low-precision inputs) and
+    cast back to the values' dtype."""
+    v = values.reshape(c, n, *values.shape[1:])
+    m = mask.reshape(c, n)
+    mm = m.reshape(m.shape + (1,) * (v.dim() - 2))
+    s = torch.where(mm, v.float(), 0.0).sum(1)
+    if reduce == "mean":
+        cnt = m.float().sum(1).clamp_min(1.0)
+        s = s / cnt.reshape((c,) + (1,) * (s.dim() - 1))
+    elif reduce != "sum":
+        raise ValueError(reduce)
+    return s.to(values.dtype)
+
+
+def pool_copy_blocks(values, batch, num_segments: int, reduce: str = "mean"):
+    """Pool node rows to subgraph-copy rows on the uniform per-copy layout
+    (`data/uniform_copies.py`): (N, F) -> (S, F) as a masked reshape and
+    axis reduction, block index == copy segment id, so the rows align
+    with the copy-level segment arrays. On the bucketed layout
+    (`batch.seg_regions`) each region is reduced the same way and the two
+    are concatenated. Returns None when the batch is not copy-uniform (the
+    caller then takes the masked segment reduction)."""
+    regions = batch.seg_regions
+    if regions is not None:
+        (cs, n_s, _), (cl, n_l, _) = regions
+        if (num_segments != cs + cl
+                or values.shape[0] != cs * n_s + cl * n_l):
+            return None
+        outs, off = [], 0
+        for c, n in ((cs, n_s), (cl, n_l)):
+            if c == 0:
+                continue
+            outs.append(_block_reduce(values[off:off + c * n],
+                                      batch.node_mask[off:off + c * n], c, n,
+                                      reduce))
+            off += c * n
+        return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+    n_c = batch.nodes_per_seg
+    if n_c is None or values.shape[0] != num_segments * n_c:
+        return None
+    return _block_reduce(values, batch.node_mask, num_segments, n_c, reduce)

@@ -12,7 +12,10 @@ accuracy), a checkpoint every `--log_steps` epochs, resuming with
 `--ensemble_eval` and the worst test graphs with `--dump_worst`. It reads
 an extracted OGB raw directory under `--data_dir` when there is one,
 else trains on deterministic synthetic molecules. Flags, defaults, cache
-keys, batches and printed lines are the JAX driver's.
+keys, batches and printed lines are the JAX driver's. `--model
+NestedPPGN` runs the two-level dense PPGN on node-rooted subgraph copies
+(with the original adjacency) in ragged batches, its dense per-copy
+budget the largest copy of the data.
 
 The batches are the uniform per-graph blocks with deduplicated ESC rows
 (`--layout uniform`, the default) or the ragged union with the width
@@ -43,9 +46,19 @@ from escgnn_tpu_torch.data.prefetch import pool_size, stack_split
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
+from escgnn_tpu_torch.featurize.node_subgraphs import (
+    NodeSubgraphConfig,
+    create_node_subgraphs,
+)
 from escgnn_tpu_torch.featurize.rw import attach_return_prob
 from escgnn_tpu_torch.featurize.transform import featurize_many
-from escgnn_tpu_torch.models.ogb_gnn import POOLINGS, OgbGNN, OgbGNNConfig
+from escgnn_tpu_torch.models.nested_ppgn import NestedPPGN, NestedPPGNConfig
+from escgnn_tpu_torch.models.ogb_gnn import (
+    POOLINGS,
+    SUBGRAPH_POOLINGS,
+    OgbGNN,
+    OgbGNNConfig,
+)
 from escgnn_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_model_tree,
@@ -67,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="ogbg-molhiv")
     p.add_argument("--model", default="GNN",
                    choices=["GNN", "GINEPlus", "NestedPPGN"],
-                   help="GNN = the efficient OGB GNN (ported); GINEPlus and "
-                   "NestedPPGN raise")
+                   help="GNN = the efficient OGB GNN; NestedPPGN = the "
+                   "two-level PPGN on node-rooted copies; GINEPlus raises "
+                   "(not ported)")
     p.add_argument("--multihop_k", type=int, default=3,
                    help="GINEPlus: number of hop levels K")
     p.add_argument("--h", type=int, default=4)
@@ -83,8 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_tasks", type=int, default=1)
     p.add_argument("--graph_pooling", default="mean", choices=list(POOLINGS))
     p.add_argument("--subgraph_pooling", default="mean",
-                   choices=["sum", "mean", "max", "attention", "center",
-                            "combine"],
+                   choices=list(SUBGRAPH_POOLINGS),
                    help="pooling of the copy level of a two-level batch; "
                    "the GNN's ESC batches have none, so it has no effect")
     p.add_argument("--rni", action="store_true",
@@ -125,9 +138,6 @@ def check_ported(args) -> None:
     if args.model == "GINEPlus":
         raise NotImplementedError(
             "--model GINEPlus: models/gine_plus.py is ROADMAP queue 8.5")
-    if args.model == "NestedPPGN":
-        raise NotImplementedError(
-            "--model NestedPPGN: the copy family is ROADMAP queue 8.4")
     if args.dump_worst and args.dataset == "ogbg-ppa":
         raise ValueError("--dump_worst scores a per-task BCE; ogbg-ppa is "
                          "one 37-class label")
@@ -152,8 +162,14 @@ def build_splits(args) -> tuple[dict, bool]:
     key = f"_rp{args.use_rp}" if args.use_rp else ""
     if args.synth_label != "parity":
         key += f"_lab{args.synth_label}"
+    if args.model == "NestedPPGN":
+        key += "_nppgn"
 
     def featurize(graphs):
+        if args.model == "NestedPPGN":
+            scfg = NodeSubgraphConfig(h=args.h, use_rd=True,
+                                      keep_orig_adj=True)
+            return [create_node_subgraphs(g, scfg) for g in graphs]
         if args.use_rp:
             graphs = [attach_return_prob(g, args.use_rp) for g in graphs]
         return featurize_many(graphs, ecfg, num_workers=args.num_workers)
@@ -169,7 +185,7 @@ def build_splits(args) -> tuple[dict, bool]:
 
 def build_spec(args, splits: dict) -> BatchSpec:
     all_graphs = [g for s in splits.values() for g in s]
-    if args.layout == "uniform":
+    if args.layout == "uniform" and args.model == "GNN":
         return BatchSpec.uniform(all_graphs, args.batch_size,
                                  enc_layout="dedup")
     return BatchSpec.from_graphs(all_graphs, args.batch_size)
@@ -179,15 +195,39 @@ def model_config(args) -> OgbGNNConfig:
     return OgbGNNConfig(
         num_tasks=args.num_tasks, num_layers=args.num_layer,
         emb_dim=args.emb_dim, dropout=args.drop_ratio, virtual_node=True,
-        graph_pooling=args.graph_pooling, rni=args.rni,
+        graph_pooling=args.graph_pooling,
+        subgraph_pooling=args.subgraph_pooling, rni=args.rni,
         use_rp=args.use_rp or 0, ppa_encoders=args.dataset == "ogbg-ppa")
 
 
-def build_model(args, device) -> OgbGNN:
+def max_copy_nodes(graphs) -> int:
+    """The largest node-rooted copy of the data: NestedPPGN's static dense
+    budget M."""
+    return max([1] + [int(np.bincount(g.extras["node_to_subgraph"]).max())
+                      for g in graphs])
+
+
+def nested_ppgn_config(args, max_sub: int) -> NestedPPGNConfig:
+    return NestedPPGNConfig(
+        emb_dim=args.emb_dim, num_rb_layers=args.num_layer,
+        num_tasks=args.num_tasks, use_rd=True,
+        classify=False,  # BCE-with-logits head (OGB multilabel)
+        max_nodes_per_subgraph=max_sub)
+
+
+def build_model(args, device, graphs=None):
     """The twin's model: weights drawn from `args.seed`, dropout's
-    generator seeded with it too."""
-    return OgbGNN(model_config(args), device=device,
-                  generator=torch.Generator().manual_seed(args.seed),
+    generator seeded with it too. NestedPPGN reads its dense budget and
+    input widths from `graphs` (every split's featurized graphs)."""
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "NestedPPGN":
+        g0 = graphs[0]
+        return NestedPPGN(nested_ppgn_config(args, max_copy_nodes(graphs)),
+                          in_dim=g0.x.reshape(g0.num_nodes, -1).shape[1],
+                          edge_dim=g0.edge_attr.reshape(
+                              g0.num_edges, -1).shape[1],
+                          device=device, generator=gen)
+    return OgbGNN(model_config(args), device=device, generator=gen,
                   rng_seed=args.seed)
 
 
@@ -251,7 +291,8 @@ def main(argv=None) -> dict:
         metric_fn = rocauc if args.metric == "rocauc" else average_precision
         loss_fn = bce_graph_loss
 
-    model = build_model(args, device)
+    model = build_model(args, device,
+                        [g for s in splits.values() for g in s])
     opt = adam_with_plateau(model.parameters(), args.lr,
                             grad_clip=args.grad_clip,
                             capturable=device.type == "cuda")

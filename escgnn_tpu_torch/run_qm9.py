@@ -1,5 +1,5 @@
 """QM9 target regression on PyTorch (the twin of the repository's
-`run_qm9.py`, its NestedGIN_eff path):
+`run_qm9.py`, its NestedGIN_eff and copy-model paths):
 
     python -m escgnn_tpu_torch.run_qm9 [--target 0] [--device cuda]
 
@@ -7,7 +7,10 @@ NestedGIN_eff with [x ‖ pos] plus an additive node-type embedding, z_emb
 concatenated with the continuous bond + normalized-distance edge
 features, mean pooling; MSE training loss on train-standardized targets,
 MAE evaluation in the reference's units (`QM9_CONVERSION`), shuffled
-10/10/80 test/val/train split. Reads the real gdb9.sdf under
+10/10/80 test/val/train split. `--model NGNN|I2GNN` runs the copy
+models on integer atom and bond types (the argmax of the one-hots), on
+`--copy_layout` uniform or ragged copy batches. Reads the real gdb9.sdf
+under
 `<data_dir>/qm9/raw/` when it is there, else trains on synthetic
 QM9-shaped molecules. Flags, defaults, batches and log lines are the JAX
 driver's.
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from escgnn_tpu_torch.data.batching import BatchSpec
-from escgnn_tpu_torch.data.container import GraphBatch
+from escgnn_tpu_torch.data.container import GraphBatch, GraphData
 from escgnn_tpu_torch.data.qm9 import (
     QM9_CONVERSION,
     append_distance_edge_attr,
@@ -39,6 +42,12 @@ from escgnn_tpu_torch.featurize.transform import featurize_many
 from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
+)
+from escgnn_tpu_torch.train.copies import (
+    COPY_MODELS,
+    copy_layout_spec,
+    copy_model,
+    featurize_copies,
 )
 from escgnn_tpu_torch.train.fit import fit
 from escgnn_tpu_torch.train.loop import adam_with_plateau
@@ -52,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target", type=int, default=0)
     p.add_argument("--model", default="NestedGIN_eff",
                    choices=["NestedGIN_eff", "NGNN", "I2GNN", *KGNN_MODELS],
-                   help="only NestedGIN_eff is ported; the others raise")
+                   help="NGNN / I2GNN run on the copy transforms of the "
+                   "typed graphs; the k-GNNs raise (not ported)")
     p.add_argument("--h", type=int, default=3)
     p.add_argument("--layers", type=int, default=5)
     p.add_argument("--hidden", type=int, default=256)
@@ -90,9 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError, naming its ROADMAP queue, for a flag
     whose module the port does not have yet."""
-    if args.model in ("NGNN", "I2GNN"):
-        raise NotImplementedError(
-            f"--model {args.model}: the copy family is ROADMAP queue 8.4")
     if args.model in KGNN_MODELS:
         raise NotImplementedError(
             f"--model {args.model}: models/kgnn_models.py is ROADMAP "
@@ -107,10 +114,15 @@ def build_splits(args) -> tuple[dict, float, float, bool]:
                               seed=args.seed)
     print(f"qm9 data: {'real gdb9.sdf' if is_real else 'synthetic'} "
           f"({len(raw)} molecules)")
-    ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
-    feats = featurize_many(raw, ecfg, num_workers=args.num_workers,
-                           self_loop_fill=1.0)
-    feats = [append_distance_edge_attr(g) for g in feats]
+    if args.model in COPY_MODELS:
+        # the copy models embed integer node and bond types
+        feats = featurize_copies([_typed(g) for g in raw], args.model,
+                                 args.h)
+    else:
+        ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
+        feats = featurize_many(raw, ecfg, num_workers=args.num_workers,
+                               self_loop_fill=1.0)
+        feats = [append_distance_edge_attr(g) for g in feats]
     order = np.random.default_rng(args.seed).permutation(len(feats))
     n10 = len(feats) // 10
     splits = {
@@ -127,6 +139,16 @@ def build_splits(args) -> tuple[dict, float, float, bool]:
     return splits, mean, std, is_real
 
 
+def _typed(g: GraphData) -> GraphData:
+    """Atom type ids (argmax of the first 5 one-hot columns) and bond type
+    ids (argmax of the bond one-hot), one int32 column each."""
+    return GraphData(
+        num_nodes=g.num_nodes, edge_index=g.edge_index,
+        x=np.argmax(g.x[:, :5], axis=1).astype(np.int32)[:, None],
+        edge_attr=np.argmax(g.edge_attr, axis=1).astype(np.int32)[:, None],
+        pos=g.pos, y=g.y)
+
+
 def model_config(args) -> NestedGINEffConfig:
     return NestedGINEffConfig(
         hidden=args.hidden, num_layers=args.layers, dropout=0.0, act="relu",
@@ -136,12 +158,14 @@ def model_config(args) -> NestedGINEffConfig:
     )
 
 
-def build_model(args, in_dim: int, edge_attr_dim: int,
-                device) -> NestedGINEff:
+def build_model(args, in_dim: int, edge_attr_dim: int, device):
     """The twin's model, its weights drawn from `args.seed`."""
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model in COPY_MODELS:
+        return copy_model(args.model, args, device, gen)
     return NestedGINEff(model_config(args), in_dim=in_dim,
                         edge_attr_dim=edge_attr_dim, device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
+                        generator=gen)
 
 
 def mse_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
@@ -170,12 +194,17 @@ def main(argv=None) -> dict:
     data_seconds = time.time() - t0
     print(f"data: {data_seconds:.1f}s mean={mean:.4f} std={std:.4f}")
 
-    all_graphs = [g for s in splits.values() for g in s]
-    # uniform per-graph blocks + deduplicated ESC rows, the flagship layout
-    spec = BatchSpec.uniform(all_graphs, args.batch_size, enc_layout="dedup")
+    if args.model in COPY_MODELS:
+        splits, spec, _ = copy_layout_spec(splits, args.batch_size,
+                                           args.copy_layout)
+    else:
+        # uniform per-graph blocks + deduplicated ESC rows, the flagship
+        # layout
+        spec = BatchSpec.uniform([g for s in splits.values() for g in s],
+                                 args.batch_size, enc_layout="dedup")
     print("spec:", spec)
 
-    g0 = all_graphs[0]
+    g0 = splits["train"][0]
     model = build_model(args, g0.x.shape[1], g0.edge_attr.shape[1], device)
     opt = adam_with_plateau(model.parameters(), args.lr,
                             grad_clip=args.grad_clip,

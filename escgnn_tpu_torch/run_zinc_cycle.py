@@ -7,7 +7,10 @@ The ZINC NestedGIN_eff (node/edge type embeddings, ELU) with the graph
 pooling removed, lin1/lin2 applied per node, trained with L1 on the
 per-node count of 3..6-cycles (`--target` 0..3) of synthetic ZINC
 molecules, standardized by the train+val statistics of the raw graphs.
-Flags, defaults, batches and log lines are the JAX driver's.
+`--model NGNN|I2GNN` runs the copy models with a per-node head: one copy
+row per original node, its target in `extras['y_seg']`, on the
+`--copy_layout` uniform, bucketed or ragged copy batches. Flags,
+defaults, batches and log lines are the JAX driver's.
 
 An epoch is one pool step (`train/loop.py`): on a CUDA device one train
 step captured into a CUDA graph and replayed over a device-resident
@@ -33,8 +36,18 @@ from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
 )
+from escgnn_tpu_torch.train.copies import (
+    COPY_MODELS,
+    copy_layout_spec,
+    copy_model,
+    featurize_copies,
+)
 from escgnn_tpu_torch.train.fit import fit
-from escgnn_tpu_torch.train.loop import adam_with_plateau, l1_node_loss
+from escgnn_tpu_torch.train.loop import (
+    adam_with_plateau,
+    l1_node_loss,
+    l1_segment_loss,
+)
 from escgnn_tpu_torch.utils.rundir import start_run
 
 
@@ -44,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target", type=int, default=0, help="0..3 -> 3..6-cycles")
     p.add_argument("--model", default="NestedGIN_eff",
                    choices=["NestedGIN_eff", "NGNN", "I2GNN", "GNN"],
-                   help="only NestedGIN_eff is ported; the others raise")
+                   help="NGNN / I2GNN run on the copy transforms with a "
+                   "per-node head; GNN raises (not ported)")
     p.add_argument("--h", type=int, default=3)
     p.add_argument("--layers", type=int, default=5)
     p.add_argument("--hidden", type=int, default=256)
@@ -59,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_graphs", type=int, default=1000)
     p.add_argument("--copy_layout", default="uniform",
                    choices=["ragged", "uniform", "bucketed"],
-                   help="NGNN/I2GNN batch layout (bucketed raises)")
+                   help="NGNN/I2GNN batch layout: uniform per-copy "
+                   "blocks, two-size bucketed blocks, or the ragged union")
     p.add_argument("--num_workers", type=int, default=2,
                    help="featurizer processes (forked; each sets one "
                    "OpenMP thread)")
@@ -81,21 +96,16 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError, naming its ROADMAP queue, for a flag
     whose module the port does not have yet."""
-    if args.model in ("NGNN", "I2GNN"):
-        raise NotImplementedError(
-            f"--model {args.model}: the copy family is ROADMAP queue 8.4")
     if args.model == "GNN":
         raise NotImplementedError(
             "--model GNN: models/baselines.py is ROADMAP queue 8.7")
-    if args.copy_layout == "bucketed":
-        raise NotImplementedError(
-            "--copy_layout bucketed: data/uniform_copies.py is ROADMAP "
-            "queue 8.4")
 
 
 def build_splits(args) -> tuple[dict, float, float]:
     """The featurized 80/10/10 splits with standardized per-node targets,
-    and the target's mean and std (train+val of the raw graphs, ddof 1)."""
+    and the target's mean and std (train+val of the raw graphs, ddof 1).
+    The copy models' targets ride in `extras['y_seg']`, one row per copy
+    (original node), with `y` cleared."""
     raw = synthetic_zinc(num_graphs=args.num_graphs, seed=args.seed)
     for g in raw:
         g.y = count_cycles_per_node(g.num_nodes, g.edge_index).astype(
@@ -106,8 +116,14 @@ def build_splits(args) -> tuple[dict, float, float]:
     std = max(std, 1e-8)
     for g in raw:
         g.y = ((g.y[:, args.target] - mean) / std)[:, None].astype(np.float32)
-    ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
-    feats = featurize_many(raw, ecfg, num_workers=args.num_workers)
+    if args.model in COPY_MODELS:
+        feats = featurize_copies(raw, args.model, args.h)
+        for g, r in zip(feats, raw):
+            g.extras["y_seg"] = np.asarray(r.y, np.float32)
+            g.y = None
+    else:
+        ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
+        feats = featurize_many(raw, ecfg, num_workers=args.num_workers)
     splits = {
         "train": feats[:n_tr],
         "val": feats[n_tr:n_tr + n_val],
@@ -124,10 +140,18 @@ def model_config(args) -> NestedGINEffConfig:
     )
 
 
-def build_model(args, device) -> NestedGINEff:
+def build_model(args, device):
     """The twin's model, its weights drawn from `args.seed`."""
-    return NestedGINEff(model_config(args), device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model in COPY_MODELS:
+        return copy_model(args.model, args, device, gen, node_level=True)
+    return NestedGINEff(model_config(args), device=device, generator=gen)
+
+
+def loss_fn(args):
+    """L1 over the per-node rows: the copy rows against `y_seg` for the
+    copy models."""
+    return l1_segment_loss if args.model in COPY_MODELS else l1_node_loss
 
 
 def main(argv=None) -> dict:
@@ -147,21 +171,31 @@ def main(argv=None) -> dict:
     data_seconds = time.time() - t0
     print(f"data: {data_seconds:.1f}s mean={mean:.3f} std={std:.3f}")
 
-    all_graphs = [g for s in splits.values() for g in s]
-    # uniform per-graph blocks + deduplicated ESC rows, the flagship layout
-    spec = BatchSpec.uniform(all_graphs, args.batch_size, enc_layout="dedup")
+    batch_transform = None  # set by --copy_layout bucketed
+    seg_level = args.model in COPY_MODELS
+    if seg_level:
+        splits, spec, batch_transform = copy_layout_spec(
+            splits, args.batch_size, args.copy_layout,
+            args.reshuffle_membership)
+    else:
+        # uniform per-graph blocks + deduplicated ESC rows, the flagship
+        # layout
+        all_graphs = [g for s in splits.values() for g in s]
+        spec = BatchSpec.uniform(all_graphs, args.batch_size,
+                                 enc_layout="dedup")
     print("spec:", spec)
 
     model = build_model(args, device)
     opt = adam_with_plateau(model.parameters(), args.lr,
                             grad_clip=args.grad_clip,
                             capturable=device.type == "cuda")
-    res = fit(args, model, opt, l1_node_loss, splits, spec, device,
+    res = fit(args, model, opt, loss_fn(args), splits, spec, device,
               node_level=True, scale=std,
-              log_path=os.path.join(res_dir, "log.txt"))
+              log_path=os.path.join(res_dir, "log.txt"),
+              segment_level=seg_level, batch_transform=batch_transform)
     print(f"best val {res['best_val']:.5f} test {res['best_test']:.5f}")
     return dict(res, mean=mean, std=std, res_dir=res_dir, spec=spec,
-                data_seconds=data_seconds)
+                data_seconds=data_seconds, batch_transform=batch_transform)
 
 
 if __name__ == "__main__":

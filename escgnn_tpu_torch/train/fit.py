@@ -44,10 +44,15 @@ POOL_BYTES = 4 * 2**30  # the stacked train pools' budget on the card
 
 
 def fit(args, model, opt, loss_fn, splits: dict, spec, device, *,
-        node_level: bool, scale: float, log_path: str, on_best=None) -> dict:
+        node_level: bool, scale: float, log_path: str, on_best=None,
+        segment_level: bool = False, batch_transform=None) -> dict:
     """Train `model` for `args.epochs` epochs on `splits["train"]` and
     evaluate on "val" / "test" (MAE over nodes when `node_level`, else
-    over graphs, times `scale`). Reads `args.lr_decay_factor`,
+    over graphs, times `scale`; over copy rows against `extras['y_seg']`
+    with the running statistics when `segment_level`, as the JAX
+    `run_zinc_cycle.py` scores its copy models). `batch_transform` (the
+    bucketed copy layout) applies to every pooled and stacked batch.
+    Reads `args.lr_decay_factor`,
     `patience`, `epochs`, `seed`, `batch_size`, `membership_pools`,
     `reshuffle_membership` and `bn_eval`. `on_best(epoch)` runs after the
     test MAE of each new best epoch. Returns the best val and test MAE
@@ -58,14 +63,17 @@ def fit(args, model, opt, loss_fn, splits: dict, spec, device, *,
     if not args.reshuffle_membership:
         pools, num_train_batches = stacked_batch_pools(
             splits["train"], spec, k=args.membership_pools, seed=args.seed,
-            max_total_bytes=POOL_BYTES, device=device)
+            max_total_bytes=POOL_BYTES, device=device,
+            batch_transform=batch_transform)
         pool_train_step = make_pool_train_step(model, opt, loss_fn, pools[0])
-    val_stack = stack_split(splits["val"], spec, device)
-    test_stack = stack_split(splits["test"], spec, device)
+    val_stack = stack_split(splits["val"], spec, device, batch_transform)
+    test_stack = stack_split(splits["test"], spec, device, batch_transform)
     refresh_stack = stack_split(splits["train"][: 8 * args.batch_size], spec,
-                                device)
-    eval_pool = make_pool_eval_step(model, node_level=node_level,
-                                    bn_mode=args.bn_eval)
+                                device, batch_transform)
+    eval_pool = make_pool_eval_step(
+        model, node_level=node_level,
+        bn_mode="running" if segment_level else args.bn_eval,
+        segment_level=segment_level)
     refresh_pool = make_pool_refresh_step(model)
 
     def evaluate(stacked):

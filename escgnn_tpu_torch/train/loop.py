@@ -128,6 +128,15 @@ class PlateauScheduler:
         return lr
 
 
+def l1_segment_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Masked L1 over the copy rows against `extras['y_seg']`: the copy
+    models' per-node heads, one copy row per original node (the JAX
+    `run_zinc_cycle.py` loss)."""
+    err = (out - batch.extras["y_seg"]).abs()
+    m = batch.segment_mask.to(err.dtype)[:, None]
+    return (err * m).sum() / (m.sum() * err.shape[-1]).clamp_min(1.0)
+
+
 def l1_node_loss(out: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     """Masked mean-absolute-error over real nodes (node-level tasks)."""
     err = (out - batch.y).abs()
@@ -316,9 +325,12 @@ _BN_MODES = ("running", "batch")
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: GraphBatch,
-              node_level: bool = True, bn_mode: str = "running"):
+              node_level: bool = True, bn_mode: str = "running",
+              segment_level: bool = False):
     """(sum |err|, count) over real rows, so a caller accumulates an exact
-    dataset MAE across fixed-shape batches. `bn_mode="running"`
+    dataset MAE across fixed-shape batches: node rows when `node_level`,
+    else graph rows; copy rows against `extras['y_seg']` when
+    `segment_level` (the copy models' per-node heads). `bn_mode="running"`
     normalizes with the running statistics; "batch" with the eval batch's
     own, leaving the running statistics untouched. The model is in
     `eval()` either way."""
@@ -327,13 +339,18 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
     with (_batch_statistics(model) if bn_mode == "batch"
           else running_statistics(model)):
         out = model(batch)
-    mask = batch.node_mask if node_level else batch.graph_mask
-    err = (out - batch.y).abs() * mask[:, None]
+    if segment_level:
+        mask, y = batch.segment_mask, batch.extras["y_seg"]
+    else:
+        mask = batch.node_mask if node_level else batch.graph_mask
+        y = batch.y
+    err = (out - y).abs() * mask[:, None]
     return err.sum(), mask.sum() * out.shape[-1]
 
 
 def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
-                        bn_mode: str = "running"):
+                        bn_mode: str = "running",
+                        segment_level: bool = False):
     """`eval_pool(stacked) -> (sum |err|, count)` accumulated on the device
     over every batch of a stacked pool; eager and forward-only."""
 
@@ -341,7 +358,7 @@ def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
         total = count = None
         for i in range(pool_size(stacked)):
             s, c = eval_step(model, pool_entry(stacked, i), node_level,
-                             bn_mode)
+                             bn_mode, segment_level)
             total = s if total is None else total + s
             count = c if count is None else count + c
         return total, count
@@ -447,11 +464,17 @@ class _PoolBuffers:
                 for k, v in self.static.tensors().items()}
         got = {k: (tuple(v.shape[1:]), v.dtype, v.device)
                for k, v in pool.tensors().items()}
-        if got != want or (pool.nodes_per_graph, pool.edges_per_graph) != (
-                self.static.nodes_per_graph, self.static.edges_per_graph):
+        if got != want or _layout(pool) != _layout(self.static):
             raise ValueError(
                 "the pool's batches differ in shape, type or device from the "
                 "step's buffers; one pool step serves only pools of one shape")
+
+
+def _layout(batch: GraphBatch) -> tuple:
+    """The static block layout of a batch: its uniform per-graph and
+    per-copy block sizes and bucketed copy regions."""
+    return (batch.nodes_per_graph, batch.edges_per_graph,
+            batch.nodes_per_seg, batch.edges_per_seg, batch.seg_regions)
 
 
 class _EagerPoolStep(_PoolBuffers):

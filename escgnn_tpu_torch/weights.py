@@ -1,4 +1,5 @@
-"""Carry a flax model state (NestedGINEff, PPGN, OgbGNN) into the
+"""Carry a flax model state (NestedGINEff, PPGN, OgbGNN, NGNN, I2GNN,
+NestedPPGN) into the
 PyTorch model.
 
 The flax `params` and `batch_stats` trees arrive as nested dicts of numpy

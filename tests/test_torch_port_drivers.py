@@ -190,21 +190,13 @@ def test_run_exp_twin(no_fork, capsys, trials):
 
 
 @pytest.mark.parametrize("main,flags,queue", [
-    (run_zinc.main, ["--model", "NGNN"], "8.4"),
-    (run_zinc.main, ["--model", "I2GNN"], "8.4"),
     (run_zinc.main, ["--model", "GNN"], "8.7"),
-    (run_zinc.main, ["--copy_layout", "bucketed"], "8.4"),
     (run_zinc.main, ["--mesh", "dp"], "10"),
     (run_zinc.main, ["--compress_pools"], "9"),
     (run_graphcount.main, ["--mesh", "ep"], "10"),
     (run_graphcount.main, ["--multihost"], "10"),
     (run_graphcount.main, ["--compress_pools"], "9"),
-    (run_zinc_cycle.main, ["--model", "NGNN"], "8.4"),
-    (run_zinc_cycle.main, ["--model", "I2GNN"], "8.4"),
     (run_zinc_cycle.main, ["--model", "GNN"], "8.7"),
-    (run_zinc_cycle.main, ["--copy_layout", "bucketed"], "8.4"),
-    (run_qm9.main, ["--model", "NGNN"], "8.4"),
-    (run_qm9.main, ["--model", "I2GNN"], "8.4"),
     (run_qm9.main, ["--model", "k1_GNN"], "8.6"),
     (run_qm9.main, ["--model", "k123_GNN"], "8.6"),
 ])

@@ -393,14 +393,35 @@ def test_rni_and_generators(mol):
         torch.testing.assert_close(m(tb), a, rtol=0, atol=0)
 
 
-def test_two_level_batch_raises(mol):
-    """Subgraph pooling over copy batches is the copy family's."""
-    _, tb, _ = mol
-    m = OgbGNN(OgbGNNConfig(**BASE), device="cpu")
-    b = dataclasses.replace(tb)
-    b.node_segment = torch.zeros(tb.num_nodes, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="8.4"):
-        m(b)
+def _two_level(jb, tb):
+    """The ragged batch as a two-level one: each graph's nodes split into
+    two copies by the parity of their local index (a copy's root is its
+    first node), both copies of graph g pointing at g."""
+    nl, ng = np.asarray(tb.node_local), np.asarray(tb.node_graph)
+    seg = (2 * ng + nl % 2).astype(np.int32)
+    G = tb.num_graphs
+    sg = np.repeat(np.arange(G, dtype=np.int32), 2)
+    sm = np.ones(2 * G, bool)
+    jb2 = jb.replace(node_segment=jnp.asarray(seg),
+                     segment_graph=jnp.asarray(sg),
+                     segment_mask=jnp.asarray(sm))
+    tb2 = dataclasses.replace(tb, node_segment=torch.from_numpy(seg),
+                              segment_graph=torch.from_numpy(sg),
+                              segment_mask=torch.from_numpy(sm))
+    return jb2, tb2
+
+
+@pytest.mark.parametrize("subpool", ["sum", "mean", "max", "attention",
+                                     "center", "combine"])
+def test_two_level_subgraph_pooling(subpool):
+    """OgbGNN's subgraph pooling over a two-level copy batch, then mean
+    graph pooling over the copy rows: eval logits in both BatchNorm modes
+    at rtol 1e-5; the virtual node reaches each copy's root only under
+    center pooling."""
+    jb, tb, _ = _batches("mol", "ragged")
+    jb2, tb2 = _two_level(jb, tb)
+    _check_eval_parity(dict(BASE, dropout=0.0, graph_pooling="mean",
+                            subgraph_pooling=subpool), jb2, tb2)
 
 
 def test_pool_step_trains_with_dropout(mol):

@@ -166,7 +166,8 @@ def _edge_graphs(cls, extra_key=None):
 
 def test_edge_aligned_extras_and_refused_keys():
     """Edge-aligned extras ride the receiver sort like edge_attr (equal
-    to JAX); the copy-level, k-set and pair extras raise with their
+    to JAX); a copy-level key without its copy budget is skipped, as the
+    JAX batcher skips it; the k-set and pair extras raise with their
     queue."""
     from escgnn_tpu.data.container import GraphData as JGraphData
 
@@ -177,8 +178,15 @@ def test_edge_aligned_extras_and_refused_keys():
     assert set(got) == set(want)
     np.testing.assert_array_equal(got["extras.w"], want["extras.w"])
     assert not np.array_equal(got["extras.w"][:8], tg[0].extras["w"])
-    for key, queue in (("node_to_subgraph", "8.4"), ("kset2_iso", "8.6"),
-                       ("pair_index", "8.3")):
+    copy_t = _edge_graphs(GraphData, "node_to_subgraph")
+    copy_j = _edge_graphs(JGraphData, "node_to_subgraph")
+    got = batch_arrays(copy_t, BatchSpec.from_graphs(copy_t, 2))
+    want = _jax_arrays(j_pad_and_batch(copy_j,
+                                       JBatchSpec.from_graphs(copy_j, 2)))
+    assert set(got) == set(want) and "extras.node_to_subgraph" not in got
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for key, queue in (("kset2_iso", "8.6"), ("pair_index", "8.3")):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             batch_arrays(_edge_graphs(GraphData, key), spec)
 

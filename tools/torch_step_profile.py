@@ -3,9 +3,13 @@
 
     python3 tools/torch_step_profile.py [--model flagship] [--steps 5] [--impl countmat]
     python3 tools/torch_step_profile.py --model ppgn --impl pallas --pool pallas
+    python3 tools/torch_step_profile.py --model i2gnn [--layout bucketed]
 
 Builds the batch and model of the flagship (NestedGINEff) or of the
-PPGN_eff counting path exactly as chip_smoke.py does, takes
+PPGN_eff counting path exactly as chip_smoke.py does, or the first train
+batch of the `run_zinc --model I2GNN|NGNN` main path at the JAX defaults
+(1000 synthetic molecules, batch 128, h 3, 256 x 5, uniform or bucketed
+copy blocks), takes
 3 warm-up steps, then profiles `--steps` train steps with torch.profiler
 (CPU and CUDA activities). Prints one JSON line: host ms per step (wall
 clock around synchronized steps), device busy ms per step (the union of
@@ -14,7 +18,8 @@ kernel launches per step, the device time of the port's own CUDA
 kernels, the kernels with the most device time and, for the flagship, the
 copies of an (E, hidden) f32 tensor to another: K1 reads its strided
 gradient in place, so the step should make none (ops are recorded with
-their shapes to find them).
+their shapes to find them), and the longest idle gaps on the device
+timeline with the kernels on either side.
 """
 
 from __future__ import annotations
@@ -45,7 +50,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--model", default="flagship",
-                    choices=["flagship", "ppgn"])
+                    choices=["flagship", "ppgn", "i2gnn", "ngnn"])
+    ap.add_argument("--layout", default="uniform",
+                    choices=["uniform", "bucketed"],
+                    help="copy layout (i2gnn and ngnn only)")
     ap.add_argument("--impl", default="countmat",
                     choices=["countmat", "countmat_pallas", "gather",
                              "pallas"])
@@ -85,7 +93,25 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     gen = torch.Generator().manual_seed(0)
-    if args.model == "ppgn":
+    if args.model in ("i2gnn", "ngnn"):
+        from escgnn_tpu_torch import run_zinc
+        from escgnn_tpu_torch.data.uniform_copies import make_bucket_transform
+        from escgnn_tpu_torch.train.copies import (
+            copy_layout_spec,
+            featurize_copies,
+        )
+
+        name = "I2GNN" if args.model == "i2gnn" else "NGNN"
+        feats = featurize_copies(synthetic_zinc(1000, seed=0), name, 3)
+        uni, spec, _ = copy_layout_spec({"all": feats}, 128, "uniform")
+        host = pad_and_batch(uni["all"][:128], spec, device="cpu")
+        if args.layout == "bucketed":
+            host = make_bucket_transform(feats, 128)[0](host)
+        batch = host.to(dev)
+        zargs = run_zinc.build_parser().parse_args(["--model", name])
+        model = run_zinc.build_model(zargs, dev)
+        loss_fn = l1_graph_loss
+    elif args.model == "ppgn":
         batch, spec, _ = counting_batch(dev)
         model = PPGN(ppgn_config(spec.max_nodes_per_graph, args.pool),
                      device=dev, generator=gen)
@@ -122,6 +148,14 @@ def main() -> int:
                and not getattr(e, "is_user_annotation", False)
                and "#" not in e.name]
     busy = _union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    timeline = sorted(kernels, key=lambda e: e.time_range.start)
+    gaps, end, before = [], None, None
+    for e in timeline:
+        if end is not None and e.time_range.start > end:
+            gaps.append(((e.time_range.start - end) / 1e3, before, e.name))
+        if end is None or e.time_range.end > end:
+            end, before = e.time_range.end, e.name
+    gaps.sort(key=lambda g: -g[0])
     by_name: dict = {}
     for e in kernels:
         by_name.setdefault(e.name, [0.0, 0])
@@ -145,6 +179,7 @@ def main() -> int:
                                      for k in e.kernels) / 1e3 / args.steps}
     print(json.dumps({
         "card": smi, "model": args.model, "impl": args.impl,
+        "layout": args.layout if args.model in ("i2gnn", "ngnn") else None,
         "pool": args.pool if args.model == "ppgn" else None,
         "steps": args.steps,
         "host_ms_per_step": wall_ms,
@@ -156,6 +191,9 @@ def main() -> int:
             if any(k in n for k in ("segsum_kernel", "zemb_rows_kernel",
                                     "pool_kernel"))},
         "f32_copies_e_by_hidden": copies,
+        "idle_gaps_ms_per_step": sum(g[0] for g in gaps) / args.steps,
+        "longest_gaps": [{"ms": g, "after": a[:70], "before": b[:70]}
+                         for g, a, b in gaps[:8]],
         "top_kernels_ms_per_step": [
             {"name": n[:90], "ms": v[0] / args.steps,
              "calls": v[1] / args.steps} for n, v in top],
