@@ -17,8 +17,8 @@ against its plain PyTorch version on the card, then drives these paths:
   * the driver twins at their default widths, in a temporary directory:
     `[run_zinc]` (3 epochs on 1000 synthetic molecules, each epoch one
     CUDA-graphed pool step), `[pool_graph]` (one epoch graphed against
-    one eager from the same state, K1 counted per graphed step by the
-    profiler), `[run_graphcount]` (3 epochs on 400 counting graphs,
+    one eager from the same state, K1 counted per graphed step from the
+    captured graph), `[run_graphcount]` (3 epochs on 400 counting graphs,
     the best checkpoint restored and re-evaluated, the cache hit, a warm
     start, one PPGN_eff epoch), `[run_zinc_cycle]` (node-level, 3 epochs
     on 1000 molecules) and `[run_qm9]` (3 epochs on 1000 synthetic
@@ -43,12 +43,26 @@ against its plain PyTorch version on the card, then drives these paths:
     collisions of the untrained 8 x 64 model, card against CPU),
     `[run_exp]` (EXP cut to 400 graphs, 2 splits x 5 epochs) and
     `[run_csl]` (2 folds x 10 epochs, then one fold through K3 inside
-    the captured step, against the default impl).
+    the captured step, against the default impl);
+  * the rest of the zoo: `[run_qm9_k123]` (`run_qm9 --model k123_GNN` at
+    the JAX defaults, h 3, batch 64, 3 graphed epochs on 1000 molecules,
+    its `[pool_graph]`) and `[run_qm9_kgnn]` (set-up seconds, the k-set
+    budgets, one epoch each of k1/k12/k13); `[run_ogb_mol_ginep]` (GINE+
+    300 x 6, k 3, dropout 0.65, 3 epochs on 640 molecules, `[pool_graph]`
+    at dropout 0.65 and 0, the bench's bf16 GINE+ step); `[run_zinc_gnn]`
+    and `[run_zinc_cycle_gnn]` (the RGCN baseline, 3 epochs each, with
+    their `[pool_graph]`); `[zoo_registry]` (every name this slice
+    registers, built by `get_model`, 3 steps each) and `[small_zoo]`
+    (card against CPU). No port kernel lies on these paths.
 
 Every phase prints one line; any failed check raises, so the script exits
-non-zero and prints no result. The last two lines are the kernel table
-(with the launches on each path: eager steps counted by the wrappers,
-graphed epochs by the profiler) and the result, both JSON.
+non-zero and prints no result. A kernel's launches in graphed epochs are
+its nodes in the captured CUDA graph, read from the graph's DOT dump,
+times the graph's replays (`_GraphLedger`); the profiler, which drops
+device records, must see the kernel run and never more often than that.
+The last two lines are the kernel table (with the launches on each
+path: eager steps counted by the wrappers, graphed epochs by the
+ledger) and the result, both JSON.
 
 Needs a CUDA card and nvcc; exits 1 without a card. Imports no JAX.
 """
@@ -56,11 +70,13 @@ Needs a CUDA card and nvcc; exits 1 without a card. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -172,6 +188,104 @@ def _profiled(fn):
         out = fn()
         torch.cuda.synchronize()
     return out, prof
+
+
+# a node's declaration in a DOT dump: its quoted name, then its attributes
+_DOT_NODE = re.compile(r'^\s*"[^"]+"\s*\[', re.M)
+
+
+def _dot_nodes(dot: str, symbol: str = "") -> int:
+    """The nodes of a graph's DOT dump (`cuGraphDebugDotPrint`) whose
+    declaration (its name and attributes, up to `];`) holds `symbol`: a
+    kernel node's label names its function."""
+    return sum(symbol in dot[m.start():dot.find("];", m.end())]
+               for m in _DOT_NODE.finditer(dot))
+
+
+def _capturing_graph_dot() -> str:
+    """The DOT dump (`cuGraphDebugDotPrint`, verbose: a kernel node's
+    label names its function) of the graph that the current stream is
+    capturing, read through the driver API: torch's `debug_dump` keeps
+    no graph to print unless the graph was made with `keep_graph`."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    rc = cuda.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        ctypes.byref(status), ctypes.byref(ctypes.c_uint64()),
+        ctypes.byref(graph), ctypes.byref(ctypes.c_void_p()),
+        ctypes.byref(ctypes.c_size_t()))
+    if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise AssertionError(f"no capture on the current stream (CUresult "
+                             f"{rc}, capture status {status.value})")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        rc = cuda.cuGraphDebugDotPrint(graph, path.encode(), ctypes.c_uint(1))
+        if rc != 0:
+            raise AssertionError(f"cuGraphDebugDotPrint: CUresult {rc}")
+        with open(path) as f:
+            return f.read()
+
+
+class _GraphLedger:
+    """The CUDA graphs captured, and their replays made, while `watch()`
+    is active (`torch.cuda.CUDAGraph`'s capture and replay are wrapped):
+    each graph's DOT dump, read as its capture ends, and its replays. A
+    replay runs every node of its graph, so a kernel's launches in graph
+    replays are its nodes times the replays. The profiler cannot count
+    them: on torch 2.11.0+cu128 it drops device records, and it read 2
+    launches of a kernel in 3 replays of one graph in three profiles in a
+    row (PERF.md §7)."""
+
+    def __init__(self):
+        self.dots: list[str] = []
+        self.replays: list[int] = []
+
+    @contextlib.contextmanager
+    def watch(self):
+        cls = torch.cuda.CUDAGraph
+        orig = {n: getattr(cls, n) for n in ("capture_end", "replay")}
+        ledger = self
+
+        def capture_end(g):
+            # torch.cuda.graph ends the capture on the capturing stream
+            dot = _capturing_graph_dot()
+            orig["capture_end"](g)
+            if _dot_nodes(dot) == 0:
+                raise AssertionError("the captured graph's DOT dump has no "
+                                     "nodes")
+            g._ledger_index = len(ledger.dots)
+            ledger.dots.append(dot)
+            ledger.replays.append(0)
+
+        def replay(g):
+            orig["replay"](g)
+            i = getattr(g, "_ledger_index", None)
+            if i is None:
+                raise AssertionError("a graph replayed under the ledger was "
+                                     "captured outside it")
+            ledger.replays[i] += 1
+
+        cls.capture_end, cls.replay = capture_end, replay
+        try:
+            yield self
+        finally:
+            for n, f in orig.items():
+                setattr(cls, n, f)
+
+    def clear_replays(self) -> None:
+        self.replays = [0] * len(self.dots)
+
+    def nodes(self, symbol: str = "") -> int:
+        """Nodes holding `symbol` over every graph captured (every node
+        with no symbol)."""
+        return sum(_dot_nodes(d, symbol) for d in self.dots)
+
+    def launches(self, symbol: str) -> int:
+        """Launches of kernels named `symbol` in the replays counted."""
+        return sum(_dot_nodes(d, symbol) * n
+                   for d, n in zip(self.dots, self.replays))
 
 
 def _device_kernels(fn) -> int:
@@ -857,10 +971,14 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     with atomics in no fixed order, and Adam amplifies that noise.
     `rel_tol=None` (a model with dropout: the two epochs draw other
     masks) compares nothing and checks that both losses are finite. The
-    kernel (label, symbol), K1 unless said, is counted by the profiler in
-    a graphed epoch: once per step (None: no kernel on the path). Prints
-    both ms/step, the device's busy time per step and the launches per
-    eager step; returns the kernel's launches in the graphed epoch.
+    kernel (label, symbol), K1 unless said, runs once per step of a
+    graphed epoch (None: no kernel on the path): one node of the captured
+    graph, replayed once per step (`_GraphLedger`), seen by the profiler
+    at least once and never more often. Prints
+    both ms/step, the device's busy time per step, the launches per eager
+    step, the seconds the pool took to build and the peak device memory
+    of the graphed epoch; returns the kernel's launches in the graphed
+    epoch.
     `batch_transform` applies to every pooled batch (the bucketed copy
     layout); `report`, a dict, receives the printed numbers."""
     import numpy as np
@@ -872,8 +990,11 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         train_step,
     )
 
+    t0 = time.perf_counter()
     pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev,
                                        batch_transform=batch_transform)
+    torch.cuda.synchronize()
+    pool_build_s = time.perf_counter() - t0
     pool = pools[0]
     order = np.random.default_rng(0).permutation(steps)
     init = copy.deepcopy(model.state_dict())
@@ -886,11 +1007,15 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         return out, (time.perf_counter() - t0) * 1e3 / steps
 
     opt = adam_with_plateau(model.parameters(), lr, capturable=True)
+    ledger = _GraphLedger()
     t0 = time.perf_counter()
-    graphed = make_pool_train_step(model, opt, loss_fn, pool)
+    with ledger.watch():
+        graphed = make_pool_train_step(model, opt, loss_fn, pool)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     g_losses, g_ms = timed(lambda: graphed(pool, order).tolist())
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     model.load_state_dict(init)
     opt_e = adam_with_plateau(model.parameters(), lr, capturable=True)
@@ -906,20 +1031,27 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         raise AssertionError(f"{twin}: graphed losses {g_losses} != eager "
                              f"{e_losses}")
 
-    # launches: the profiler's device events in one graphed epoch (the
-    # kernel by its symbol) and in one eager step
-    _, prof = _profiled(lambda: graphed(pool, order))
+    # launches: the kernel's in one graphed epoch (its nodes in the
+    # captured graph times the replays; the profiler's sightings beside
+    # them) and the profiler's device events in it and in one eager step
+    per_epoch = {}
+    ledger.clear_replays()
+    with ledger.watch():
+        _, prof = _profiled(lambda: graphed(pool, order))
+    if kernel is not None:
+        label, symbol = kernel
+        n, seen = ledger.launches(symbol), _kernel_events(prof, symbol)
+        if n != steps or not 1 <= seen <= n:
+            raise AssertionError(
+                f"{twin}: {label} ran {n} times in a graphed epoch of "
+                f"{steps} steps ({ledger.nodes(symbol)} node(s) in the "
+                f"graph, {sum(ledger.replays)} replays; the profiler saw "
+                f"{seen})")
+        per_epoch = {f"{label}_per_graphed_epoch": n,
+                     f"{label}_profiler_seen": seen}
     graphed_events = _kernel_events(prof)
     graphed_busy = _busy_ms(prof) / steps
     launch_host = _host_ms(prof, "cudaGraphLaunch") / steps
-    per_epoch = {}
-    if kernel is not None:
-        label, symbol = kernel
-        n = _kernel_events(prof, symbol)
-        if n != steps:
-            raise AssertionError(f"{twin}: {label} ran {n} times in a "
-                                 f"graphed epoch of {steps} steps")
-        per_epoch = {f"{label}_per_graphed_epoch": n}
     eager_step = lambda: train_step(  # noqa: E731
         model, opt_e, pool_entry(pool, int(order[0])), loss_fn)
     per_eager = _device_kernels(eager_step)
@@ -930,13 +1062,15 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
         graphed_busy_ms_per_step=graphed_busy,
         eager_busy_ms_per_step=eager_busy,
         graphed_idle_share=1 - graphed_busy / g_ms,
+        graph_kernel_nodes=ledger.nodes("{KERNEL"),
         graph_launch_host_ms_per_step=launch_host,
         eager_idle_share=1 - eager_busy / e_ms,
         losses_compared=rel_tol is not None, first_loss_rel=rel[0],
         max_loss_rel=max(rel),
         graphed_losses=json.dumps(g_losses), eager_losses=json.dumps(e_losses),
         **per_epoch, device_events_per_graphed_step=graphed_events / steps,
-        launches_per_eager_step=per_eager)
+        launches_per_eager_step=per_eager, pool_build_s=pool_build_s,
+        graphed_peak_mem_gb=peak_gb)
     if report is not None:
         report.update(fields)
     _log("pool_graph", twin=twin, steps=steps, capture_s=round(capture_s, 3),
@@ -1081,16 +1215,19 @@ def run_graphcount_twin(work: str, smi: str):
 
 
 def _regression_twin(name, twin, work, smi, graphs, steps, loss_fn,
-                     build_model):
-    """`[<name>]`: a regression twin's main() at its default widths on
-    `graphs` molecules for 3 graphed epochs (loss falls, finite MAE, the
-    expected steps per epoch), then `[pool_graph]` on its train split
-    (built again by the twin's own `build_splits`) and a fresh model:
-    K1 once per graphed step, counted by the profiler. Returns (the run's
-    result, its flags, K1's launches in one graphed epoch)."""
-    argv = ["--num_graphs", str(graphs), "--epochs", "3", "--num_workers",
-            "2", "--res_dir", os.path.join(work, name)]
-    if name == "run_qm9":
+                     build_model, flags=(), kernel=("k1", "segsum_kernel")):
+    """`[<name>]`: a regression twin's main() at its default widths (and
+    `flags`) on `graphs` molecules for 3 graphed epochs (loss
+    falls, finite MAE, the expected steps per epoch), then `[pool_graph]`
+    on its train split (built again by the twin's own `build_splits`) and
+    a fresh model: `kernel`, K1 unless said, once per graphed step,
+    counted by the profiler (None: no port kernel on the path). Returns
+    (the run's result, its flags, the kernel's launches in one graphed
+    epoch)."""
+    argv = ["--num_graphs", str(graphs), "--epochs", "3",
+            "--num_workers", "2", "--res_dir", os.path.join(work, name),
+            *flags]
+    if twin.__name__.endswith(("run_qm9", "run_zinc")):
         argv += ["--data_dir", os.path.join(work, "data")]
     t0 = time.perf_counter()
     res = twin.main(argv)
@@ -1098,13 +1235,17 @@ def _regression_twin(name, twin, work, smi, graphs, steps, loss_fn,
     _check_epochs(name, res, steps=steps)
     args = twin.build_parser().parse_args(argv)
     splits = twin.build_splits(args)[0]
+    report = {}
     k1_graphed = check_pool_graph(name, build_model(args, splits),
                                   loss_fn, splits["train"], res["spec"],
-                                  args.lr, torch.device("cuda", 0))
+                                  args.lr, torch.device("cuda", 0),
+                                  kernel=kernel, report=report)
+    res["pool_graph"] = report
     _log(name, seconds=round(seconds, 3), graphs=graphs,
          steps_per_epoch=steps, hidden=args.hidden, layers=args.layers,
          batch=args.batch_size, **_epoch_fields(res),
-         k1_per_graphed_epoch=k1_graphed, card=json.dumps(smi), ok=True)
+         **({f"{kernel[0]}_per_graphed_epoch": k1_graphed} if kernel
+            else {}), card=json.dumps(smi), ok=True)
     return res, args, k1_graphed
 
 
@@ -1241,6 +1382,63 @@ def check_dropout_replays(args, graphs, spec, dev):
     return out
 
 
+def _bench_step(make_model, pool, loss_fn, steps: int = 20, kernel=None):
+    """One bench-shaped train step, batch 0 of `pool`, timed as the
+    graphed pool step replayed over it and as eager steps, each on a
+    fresh model from `make_model()`. Returns the numbers: ms/step both
+    ways, the graphed step's busy ms, idle share and device events per
+    step, from the profiler over 5 replays, and with `kernel` (a symbol)
+    its launches per replay (its nodes in the captured graph, seen by the
+    profiler at least once and never more often: `_GraphLedger`)."""
+    from escgnn_tpu_torch.data.prefetch import pool_entry
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        make_pool_train_step,
+        train_step,
+    )
+
+    m = make_model()
+    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
+    ledger = _GraphLedger()
+    with ledger.watch():
+        graphed = make_pool_train_step(m, opt, loss_fn, pool)
+    graphed(pool, [0] * 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_losses = graphed(pool, [0] * steps).tolist()
+    g_ms = (time.perf_counter() - t0) * 1e3 / steps
+    extra = {}
+    with ledger.watch():
+        _, prof = _profiled(lambda: graphed(pool, [0] * 5))
+    if kernel is not None:
+        n, seen = ledger.launches(kernel), _kernel_events(prof, kernel)
+        if not 1 <= seen <= n:
+            raise AssertionError(f"bench step: the profiler saw {kernel} "
+                                 f"{seen} times in {n} launches")
+        extra = dict(kernel_per_graphed_step=n / 5,
+                     kernel_profiler_seen=seen)
+    busy = _busy_ms(prof) / 5
+
+    m = make_model()
+    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
+    b = pool_entry(pool, 0)
+    for _ in range(3):
+        train_step(m, opt, b, loss_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_losses = torch.stack([train_step(m, opt, b, loss_fn)
+                            for _ in range(steps)]).tolist()
+    e_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not all(math.isfinite(v) for v in g_losses + e_losses):
+        raise AssertionError(f"bench step: non-finite losses {g_losses} "
+                             f"{e_losses}")
+    return dict(graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
+                graphed_busy_ms_per_step=busy,
+                graphed_idle_share=1 - busy / g_ms,
+                device_events_per_graphed_step=_kernel_events(prof) / 5,
+                graph_kernel_nodes=ledger.nodes("{KERNEL"), **extra)
+
+
 def time_ogb_bench_step(dev):
     """The bench's OgbGNN line (`bench.py:522-540`): 32 molhiv-shaped
     synthetic graphs (h 4) in one uniform + dedup batch, OgbGNN 6 x 300,
@@ -1250,15 +1448,10 @@ def time_ogb_bench_step(dev):
     busy time, device events and K1 launches."""
     from escgnn_tpu_torch.data.batching import BatchSpec
     from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
-    from escgnn_tpu_torch.data.prefetch import pool_entry, stack_split
+    from escgnn_tpu_torch.data.prefetch import stack_split
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
     from escgnn_tpu_torch.models.ogb_gnn import OgbGNN, OgbGNNConfig
-    from escgnn_tpu_torch.train.loop import (
-        adam_with_plateau,
-        bce_graph_loss,
-        make_pool_train_step,
-        train_step,
-    )
+    from escgnn_tpu_torch.train.loop import bce_graph_loss
 
     graphs = featurize_many(synthetic_ogb_mol(32, seed=0, num_tasks=1),
                             EscConfig(h=4, use_rd=True, self_loop=True),
@@ -1267,48 +1460,20 @@ def time_ogb_bench_step(dev):
     pool = stack_split(graphs, spec, dev)
     cfg = OgbGNNConfig(num_tasks=1, num_layers=6, emb_dim=300, dropout=0.0,
                        virtual_node=True, compute_dtype="bfloat16")
-    steps = 20
-
-    def model():
-        return OgbGNN(cfg, device=dev,
-                      generator=torch.Generator().manual_seed(0))
-
-    m = model()
-    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
-    graphed = make_pool_train_step(m, opt, bce_graph_loss, pool)
-    graphed(pool, [0] * 3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    g_losses = graphed(pool, [0] * steps).tolist()
-    g_ms = (time.perf_counter() - t0) * 1e3 / steps
-    _, prof = _profiled(lambda: graphed(pool, [0] * 5))
-    busy = _busy_ms(prof) / 5
-    events = _kernel_events(prof) / 5
-    k1 = _kernel_events(prof, "segsum_kernel") / 5
-
-    m = model()
-    opt = adam_with_plateau(m.parameters(), 1e-3, capturable=True)
-    b = pool_entry(pool, 0)
-    for _ in range(3):
-        train_step(m, opt, b, bce_graph_loss)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    e_losses = torch.stack([train_step(m, opt, b, bce_graph_loss)
-                            for _ in range(steps)]).tolist()
-    e_ms = (time.perf_counter() - t0) * 1e3 / steps
-    if not all(math.isfinite(v) for v in g_losses + e_losses):
-        raise AssertionError(f"ogb bench step: non-finite losses {g_losses}")
-    if k1 != 1:
-        raise AssertionError(f"ogb bench step: K1 {k1} times per step")
+    fields = _bench_step(
+        lambda: OgbGNN(cfg, device=dev,
+                       generator=torch.Generator().manual_seed(0)),
+        pool, bce_graph_loss, kernel="segsum_kernel")
+    fields["k1_per_graphed_step"] = fields.pop("kernel_per_graphed_step")
+    if fields["k1_per_graphed_step"] != 1:
+        raise AssertionError(f"ogb bench step: K1 "
+                             f"{fields['k1_per_graphed_step']} times per "
+                             f"step")
     real_edges = sum(g.num_edges for g in graphs)
     return dict(graphs=32, N=spec.num_nodes, E=spec.num_edges,
-                R=spec.num_enc_rows, real_edges=real_edges,
-                graphed_ms_per_step=g_ms, eager_ms_per_step=e_ms,
-                graphed_busy_ms_per_step=busy,
-                graphed_idle_share=1 - busy / g_ms,
-                device_events_per_graphed_step=events,
-                k1_per_graphed_step=k1,
-                graphed_real_edges_per_s=real_edges / (g_ms / 1e3))
+                R=spec.num_enc_rows, real_edges=real_edges, **fields,
+                graphed_real_edges_per_s=real_edges / (
+                    fields["graphed_ms_per_step"] / 1e3))
 
 
 def check_small_ogb(dev):
@@ -1740,6 +1905,427 @@ def check_small_copy(dev):
          max_abs_err=json.dumps(errs), ok=True)
 
 
+def run_qm9_kgnn_twins(work: str, smi: str, dev):
+    """`[run_qm9_k123]`: `run_qm9 --model k123_GNN` at the JAX driver's
+    defaults (h 3 node copies with resistance distances, all 2-sets and
+    connected 3-sets with Malkin neighbourhoods, batch 64, lr 1e-3, MSE)
+    on 1000 synthetic molecules for 3 graphed epochs: 800 train graphs,
+    13 steps per epoch; its `[pool_graph]` (no port kernel on the path);
+    the set-up seconds (featurize with the k-set enumeration apart, then
+    one stacked pool) and the spec's k-set budgets. Then one graphed
+    epoch each of k1_GNN, k12_GNN and k13_GNN."""
+    from escgnn_tpu_torch import run_qm9
+
+    def build(args, splits):
+        g = splits["train"][0]
+        return run_qm9.build_model(args, g.x.shape[1], g.edge_attr.shape[1],
+                                   dev, has_pos=g.pos is not None)
+
+    res, args, _ = _regression_twin(
+        "run_qm9_k123", run_qm9, work, smi, 1000, 13, run_qm9.mse_loss,
+        build, flags=["--model", "k123_GNN"], kernel=None)
+    spec = res["spec"]
+    budgets = {f: getattr(spec, f) for f in (
+        "num_nodes", "num_edges", "num_segments", "num_kset2",
+        "num_kset2_edges", "num_kset2_assign", "num_kset3",
+        "num_kset3_edges", "num_kset3_assign", "num_assign_2to3")}
+    if not (spec.num_kset2 and spec.num_kset3 and spec.num_assign_2to3):
+        raise AssertionError(f"run_qm9_k123: spec {spec}")
+    others = {}
+    for model in ("k1_GNN", "k12_GNN", "k13_GNN"):
+        t0 = time.perf_counter()
+        r = run_qm9.main([
+            "--model", model, "--num_graphs", "1000", "--epochs", "1",
+            "--num_workers", "2", "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, f"qm9_{model}")])
+        e = r["epochs"][0]
+        if not (math.isfinite(e["loss"]) and math.isfinite(e["val_mae"])
+                and e["steps"] == 13):
+            raise AssertionError(f"run_qm9 {model}: epoch {e}")
+        others[model] = dict(
+            seconds=time.perf_counter() - t0, data_seconds=r["data_seconds"],
+            kset_seconds=r["kset_seconds"], loss=e["loss"],
+            val_mae=e["val_mae"],
+            graphed_ms_per_step=e["train_seconds"] / e["steps"] * 1e3)
+    _log("run_qm9_kgnn", data_seconds=res["data_seconds"],
+         kset_seconds=res["kset_seconds"],
+         pool_build_s=res["pool_graph"]["pool_build_s"],
+         budgets=json.dumps(budgets), one_epoch=json.dumps(others),
+         card=json.dumps(smi), ok=True)
+
+
+def run_ogb_gineplus_twin(work: str, smi: str, dev):
+    """`[run_ogb_mol_ginep]`: `run_ogb_mol --model GINEPlus` at the JAX
+    driver's defaults (emb 300 x 6 layers, k 3 hop levels, virtual node,
+    dropout 0.65, batch 32, uniform per-graph blocks, masked BCE) on 640
+    synthetic molecules with the triangle label for 3 epochs: 512 train
+    graphs, 16 graphed steps per epoch. Then `[pool_graph]` at the twin's
+    dropout (losses not compared) and at dropout 0, where only the first
+    step's loss is held to eager's (rel 1e-5): at 300 x 6 this training
+    is chaotic, and the atomics' order alone moves later losses by
+    percents; the phase measures that, as the eager epochs' spread from
+    initial weights scaled by (1 + 1e-7 N(0, 1)). Then the bench's GINE+
+    line (`bench.py:625-640`: 32 graphs, hidden 100 x 6, k 3, bf16,
+    dropout 0) graphed and eager. No port kernel lies on this path."""
+    from escgnn_tpu_torch import run_ogb_mol
+    from escgnn_tpu_torch.data.batching import BatchSpec
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch.data.prefetch import stack_split
+    from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
+    from escgnn_tpu_torch.models.gine_plus import (
+        GINEPlusConfig,
+        GINEPlusNetwork,
+    )
+    from escgnn_tpu_torch.train.loop import bce_graph_loss
+
+    argv = ["--model", "GINEPlus", "--num_graphs", "640", "--epochs", "3",
+            "--synth_label", "tri", "--num_workers", "2",
+            "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, "ogb_ginep")]
+    t0 = time.perf_counter()
+    res = run_ogb_mol.main(argv)
+    seconds = time.perf_counter() - t0
+    eps = res["epochs"]
+    losses, vals = [e["loss"] for e in eps], [e["val"] for e in eps]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"run_ogb_mol_ginep: losses {losses}")
+    if not all(0.0 <= v <= 1.0 for v in vals):
+        raise AssertionError(f"run_ogb_mol_ginep: val ROC-AUC {vals}")
+    if any(e["steps"] != 16 for e in eps):
+        raise AssertionError(f"run_ogb_mol_ginep: steps "
+                             f"{[e['steps'] for e in eps]}")
+    spec = res["spec"]
+    if not spec.uniform_nodes or spec.enc_width:
+        raise AssertionError(f"run_ogb_mol_ginep: spec {spec}")
+    args = run_ogb_mol.build_parser().parse_args(argv)
+    train = run_ogb_mol.build_splits(args)[0]["train"]
+    report = {}
+    check_pool_graph("run_ogb_mol_ginep", run_ogb_mol.build_model(args, dev),
+                     bce_graph_loss, train, spec, args.lr, dev, kernel=None,
+                     rel_tol=None, report=report)
+    args0 = run_ogb_mol.build_parser().parse_args(argv + ["--drop_ratio",
+                                                          "0"])
+    check_pool_graph("run_ogb_mol_ginep_dropout0",
+                     run_ogb_mol.build_model(args0, dev), bce_graph_loss,
+                     train, spec, args.lr, dev, kernel=None,
+                     rel_tol=(1e-5, math.inf))
+    spread = _perturbed_spread(lambda: run_ogb_mol.build_model(args0, dev),
+                               bce_graph_loss, train, spec, args.lr, dev)
+
+    graphs = [make_multihop_edges(g, k=3)
+              for g in synthetic_ogb_mol(32, seed=0, num_tasks=1)]
+    bspec = BatchSpec.uniform(graphs, 32)
+    cfg = GINEPlusConfig(hidden=100, out_dim=1, num_layers=6, dropout=0.0,
+                         k=3, virtual_node=True, compute_dtype="bfloat16")
+    bench = _bench_step(
+        lambda: GINEPlusNetwork(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(0)),
+        stack_split(graphs, bspec, dev), bce_graph_loss)
+    real_edges = sum(g.num_edges for g in graphs)
+    bench.update(graphs=32, N=bspec.num_nodes, E=bspec.num_edges,
+                 real_multihop_edges=real_edges,
+                 graphed_real_edges_per_s=real_edges / (
+                     bench["graphed_ms_per_step"] / 1e3))
+    _log("run_ogb_mol_ginep", seconds=round(seconds, 3), graphs=640,
+         steps_per_epoch=16, emb=args.emb_dim, layers=args.num_layer,
+         k=args.multihop_k, dropout=args.drop_ratio, batch=args.batch_size,
+         N=spec.num_nodes, E=spec.num_edges,
+         data_seconds=round(res["data_seconds"], 3),
+         epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+         loss=json.dumps(losses), val_rocauc=json.dumps(vals),
+         best_val=res["best_val"], best_test=res["best_test"],
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]),
+         bench_step=json.dumps(bench),
+         dropout0_perturbed_rel=json.dumps(spread), card=json.dumps(smi),
+         ok=True)
+
+
+def _perturbed_spread(make_model, loss_fn, train, spec, lr, dev,
+                      scale=1e-7):
+    """The relative difference per step between two eager epochs over one
+    pool, from a model's initial weights and from the same weights times
+    (1 + scale N(0, 1)): how far the training itself carries a rounding
+    difference."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.prefetch import pool_entry, stacked_batch_pools
+    from escgnn_tpu_torch.train.loop import adam_with_plateau, train_step
+
+    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev)
+    order = np.random.default_rng(0).permutation(steps)
+    gen = torch.Generator().manual_seed(1)
+    runs = []
+    for eps in (0.0, scale):
+        m = make_model()
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + eps * torch.randn(p.shape, generator=gen).to(dev))
+        opt = adam_with_plateau(m.parameters(), lr, capturable=True)
+        runs.append(torch.stack([
+            train_step(m, opt, pool_entry(pools[0], int(j)), loss_fn)
+            for j in order]).tolist())
+    return [abs(a - b) / abs(a) for a, b in zip(*runs)]
+
+
+def run_zinc_gnn_twins(work: str, smi: str, dev):
+    """`[run_zinc_gnn]`: `run_zinc --model GNN` (the RGCN baseline, 5
+    layers, batch 128, lr 5e-4, ragged width batches of the ESC-featurized
+    graphs, read from the feature cache `[run_zinc]` wrote) on 1000
+    synthetic molecules for 3 graphed epochs: 800 train graphs, 7 steps
+    per epoch; its `[pool_graph]`. Then `run_zinc_cycle --model GNN`
+    (node-level RGCN on the raw graphs) for 3 epochs with its
+    `[pool_graph]`. No port kernel lies on these paths."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_zinc, run_zinc_cycle
+    from escgnn_tpu_torch.featurize.cache import cache_path, load_graphs
+    from escgnn_tpu_torch.train.loop import l1_graph_loss, l1_node_loss
+
+    argv = ["--model", "GNN", "--num_graphs", "1000", "--epochs", "3",
+            "--num_workers", "2", "--data_dir", os.path.join(work, "data"),
+            "--res_dir", os.path.join(work, "zinc_gnn")]
+    t0 = time.perf_counter()
+    res = run_zinc.main(argv)
+    seconds = time.perf_counter() - t0
+    _check_epochs("run_zinc_gnn", res, steps=7)
+    spec = res["spec"]
+    if spec.uniform_nodes:
+        raise AssertionError(f"run_zinc_gnn: spec {spec}")
+    args = run_zinc.build_parser().parse_args(argv)
+    train = load_graphs(cache_path(os.path.join(work, "data", "zinc_synth"),
+                                   "train_n1000_s0_esc_h3_rd_sl"))
+    for g in train:
+        g.y = ((g.y - res["mean"]) / res["std"]).astype(np.float32)
+    report = {}
+    check_pool_graph("run_zinc_gnn", run_zinc.build_model(args, dev),
+                     l1_graph_loss, train, spec, args.lr, dev, kernel=None,
+                     report=report)
+    _log("run_zinc_gnn", seconds=round(seconds, 3), graphs=1000,
+         steps_per_epoch=7, layers=args.layers, batch=args.batch_size,
+         N=spec.num_nodes, E=spec.num_edges, **_epoch_fields(res),
+         card=json.dumps(smi), ok=True)
+    _regression_twin(
+        "run_zinc_cycle_gnn", run_zinc_cycle, work, smi, 1000, 7,
+        l1_node_loss, lambda a, splits: run_zinc_cycle.build_model(a, dev),
+        flags=["--model", "GNN"], kernel=None)
+
+
+def _zoo_data():
+    """Host batches for the zoo: (TU-shaped ZINC molecules, one-hot atom
+    types and a two-class label; their h-2 node copies; the same
+    molecules with type ids and a float target; multihop OGB molecules;
+    QM9 molecules with distance edges; 16 QM9 molecules with h-3 copies
+    and their 2- and 3-set graphs, the bench's k123 shape)."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.container import GraphData
+    from escgnn_tpu_torch.data.molecules import (
+        synthetic_ogb_mol,
+        synthetic_zinc,
+    )
+    from escgnn_tpu_torch.data.qm9 import (
+        append_distance_edge_attr,
+        synthetic_qm9,
+    )
+    from escgnn_tpu_torch.featurize.kset import attach_kset_graphs
+    from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
+    from escgnn_tpu_torch.featurize.node_subgraphs import (
+        NodeSubgraphConfig,
+        create_node_subgraphs,
+    )
+
+    def host(graphs):
+        return pad_and_batch(graphs, BatchSpec.from_graphs(graphs,
+                                                           len(graphs)),
+                             device="cpu")
+
+    zinc = synthetic_zinc(32, seed=11)
+    tu = [GraphData(num_nodes=g.num_nodes, edge_index=g.edge_index,
+                    x=np.eye(28, dtype=np.float32)[g.x[:, 0]],
+                    edge_attr=g.edge_attr,
+                    y=np.asarray([int(g.num_nodes >= 24)], np.int64))
+          for g in zinc]
+    copies = [create_node_subgraphs(g, NodeSubgraphConfig(h=2)) for g in tu]
+    qm9 = synthetic_qm9(16, seed=0)
+    for g in qm9:
+        g.y = np.asarray(g.y, np.float32)[:1]
+    qm9 = [append_distance_edge_attr(g) for g in qm9]
+    kset = [attach_kset_graphs(create_node_subgraphs(
+        g, NodeSubgraphConfig(h=3, use_rd=True)), ks=(2, 3), malkin=True)
+        for g in qm9]
+    ogb = [make_multihop_edges(g, 3)
+           for g in synthetic_ogb_mol(16, seed=0, num_tasks=1)]
+    return dict(tu=host(tu), copies=host(copies), zinc=host(zinc),
+                ogb=host(ogb), qm9=host(qm9), kset=host(kset),
+                kset_graphs=kset)
+
+
+def check_zoo_registry(dev):
+    """`[zoo_registry]`: every name this slice registers, built through
+    `get_model` on the card, 3 Adam steps (lr 1e-4) each on one batch:
+    BaselineGNN with each of its 8 convs under the pools mean, add, max,
+    attention, set2set and sort (gcn_dir on node copies, whose hop labels
+    it reads), IDGNN with each of its 4 convs on node copies, RGCN,
+    GINEPlus, k1_GNN and the nested k12 / k13 / k123 (the bench's k123
+    shape: 16 QM9 molecules, h 3), all at dropout 0. Every loss is
+    finite and the third is below the first."""
+    from escgnn_tpu_torch.models.baselines import BASELINE_CONVS
+    from escgnn_tpu_torch.models.idgnn import IDGNN_CONVS
+    from escgnn_tpu_torch.models.registry import get_model
+    from escgnn_tpu_torch.run_qm9 import mse_loss
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        bce_graph_loss,
+        ce_graph_loss,
+        l1_graph_loss,
+        train_step,
+    )
+
+    data = _zoo_data()
+    b = {k: v.to(dev) for k, v in data.items() if k != "kset_graphs"}
+    g0 = data["kset_graphs"][0]
+    kgnn_kw = dict(x_dim=g0.x.shape[1], edge_dim=g0.edge_attr.shape[1],
+                   use_rd=True, use_pos=True)
+    cases = []
+    for conv in BASELINE_CONVS:
+        for pool in ("mean", "add", "max", "attention", "set2set", "sort"):
+            cases.append((f"BaselineGNN[{conv},{pool}]", "BaselineGNN",
+                          dict(conv=conv, pool=pool, dropout=0.0,
+                               in_dim=28),
+                          "copies" if conv == "gcn_dir" else "tu",
+                          ce_graph_loss))
+    for conv in IDGNN_CONVS:
+        cases.append((f"IDGNN[{conv}]", "IDGNN",
+                      dict(conv=conv, dropout=0.0, in_dim=28), "copies",
+                      ce_graph_loss))
+    cases += [
+        ("RGCN", "RGCN", {}, "zinc", l1_graph_loss),
+        ("GINEPlus", "GINEPlus", dict(out_dim=1, k=3, virtual_node=True,
+                                      dropout=0.0), "ogb", bce_graph_loss),
+        ("k1_GNN", "k1_GNN", dict(x_dim=g0.x.shape[1],
+                                  edge_dim=g0.edge_attr.shape[1],
+                                  use_pos=True), "qm9", mse_loss),
+        ("Nested_k12_GNN", "Nested_k12_GNN", dict(kgnn_kw, has_pos=False),
+         "kset", mse_loss),
+        ("Nested_k13_GNN", "Nested_k13_GNN", dict(kgnn_kw, has_pos=False),
+         "kset", mse_loss),
+        ("Nested_k123_GNN", "Nested_k123_GNN", dict(kgnn_kw, has_pos=False),
+         "kset", mse_loss),
+    ]
+    t0 = time.perf_counter()
+    losses = {}
+    for label, name, kw, key, loss_fn in cases:
+        m = get_model(name, device=dev,
+                      generator=torch.Generator().manual_seed(0), **kw)
+        opt = adam_with_plateau(m.parameters(), 1e-4)
+        ls = torch.stack([train_step(m, opt, b[key], loss_fn)
+                          for _ in range(3)]).tolist()
+        if not all(math.isfinite(v) for v in ls) or not ls[2] < ls[0]:
+            raise AssertionError(f"zoo {label}: losses {ls}")
+        losses[label] = ls
+    _log("zoo_registry", models=len(cases),
+         seconds=round(time.perf_counter() - t0, 3),
+         k123_batch=json.dumps(dict(N=b["kset"].num_nodes,
+                                    E=b["kset"].num_edges,
+                                    S2=b["kset"].extras["kset2_mask"].shape[0],
+                                    S3=b["kset"].extras["kset3_mask"].shape[0])),
+         losses=json.dumps(losses), ok=True)
+
+
+def check_small_zoo(dev):
+    """`[small_zoo]`: KGNN k123, GINE+ (ragged and uniform blocks), RGCN,
+    BaselineGNN (GAT, set2set pooling) and IDGNN (GIN) on the card
+    against the CPU on small f32 inputs: eval outputs (on the running and
+    on the batch statistics where the model has BatchNorm), the
+    train-mode loss and every gradient, rtol/atol 1e-4 (gradients: atol
+    1e-4 of the largest)."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch.data.qm9 import (
+        append_distance_edge_attr,
+        synthetic_qm9,
+    )
+    from escgnn_tpu_torch.featurize.kset import attach_kset_graphs
+    from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
+    from escgnn_tpu_torch.featurize.node_subgraphs import (
+        NodeSubgraphConfig,
+        create_node_subgraphs,
+    )
+    from escgnn_tpu_torch.models.layers import bn_statistics
+    from escgnn_tpu_torch.models.registry import get_model
+    from escgnn_tpu_torch.run_qm9 import mse_loss
+    from escgnn_tpu_torch.train.loop import bce_graph_loss, ce_graph_loss
+
+    data = _zoo_data()
+    qm9 = []
+    for g in synthetic_qm9(4, seed=5):
+        g.y = np.asarray(g.y, np.float32)[:1]
+        qm9.append(attach_kset_graphs(create_node_subgraphs(
+            append_distance_edge_attr(g),
+            NodeSubgraphConfig(h=2, use_rd=True)), ks=(2, 3)))
+    ogb = [make_multihop_edges(g, 3)
+           for g in synthetic_ogb_mol(6, seed=7, num_tasks=1)]
+    cases = [
+        ("k123", "Nested_k123_GNN", dict(
+            x_dim=qm9[0].x.shape[1], edge_dim=qm9[0].edge_attr.shape[1],
+            has_pos=False, use_rd=True, use_pos=True),
+         pad_and_batch(qm9, BatchSpec.from_graphs(qm9, 4), device="cpu"),
+         mse_loss),
+        ("gineplus_ragged", "GINEPlus", dict(
+            hidden=16, num_layers=3, out_dim=1, k=3, virtual_node=True,
+            dropout=0.0),
+         pad_and_batch(ogb, BatchSpec.from_graphs(ogb, 6), device="cpu"),
+         bce_graph_loss),
+        ("gineplus_uniform", "GINEPlus", dict(
+            hidden=16, num_layers=3, out_dim=1, k=3, virtual_node=True,
+            dropout=0.0),
+         pad_and_batch(ogb, BatchSpec.uniform(ogb, 6), device="cpu"),
+         bce_graph_loss),
+        ("rgcn", "RGCN", dict(num_layers=2), data["zinc"], mse_loss),
+        ("baseline_gat_set2set", "BaselineGNN", dict(
+            conv="gat", pool="set2set", hidden=16, num_layers=2,
+            dropout=0.0, in_dim=28), data["tu"], ce_graph_loss),
+        ("idgnn_gin", "IDGNN", dict(conv="gin", hidden=16, num_layers=2,
+                                    dropout=0.0, in_dim=28),
+         data["copies"], ce_graph_loss),
+    ]
+
+    def run(name, kw, host, loss_fn, device):
+        m = get_model(name, device=device,
+                      generator=torch.Generator().manual_seed(3), **kw)
+        b = host.to(device)
+        out = {}
+        m.eval()
+        with torch.no_grad():
+            for running in (True, False):
+                with bn_statistics(m, use_running_average=running):
+                    out[f"eval_running_{running}"] = m(b).cpu()
+        m.train()
+        loss = loss_fn(m(b), b)
+        loss.backward()
+        out["loss"] = loss.detach().cpu()
+        out.update({f"grad {k}": p.grad.cpu()
+                    for k, p in m.named_parameters()})
+        return out
+
+    errs = {}
+    for label, name, kw, host, loss_fn in cases:
+        cpu = run(name, kw, host, loss_fn, "cpu")
+        gpu = run(name, kw, host, loss_fn, dev)
+        gmax = max(v.abs().max().item() for k, v in cpu.items()
+                   if k.startswith("grad"))
+        errs[label] = max(
+            _check_close(f"small_zoo {label} {k}", gpu[k], cpu[k],
+                         rtol=1e-4,
+                         atol=1e-4 * gmax if k.startswith("grad") else 1e-4)
+            for k in cpu)
+    _log("small_zoo", max_abs_err=json.dumps(errs), ok=True)
+
+
 def run_sr_twin(smi: str, dev):
     """`[run_sr]`: the SR25 check at its defaults (untrained, 8 layers x
     64, seed 0, the real graphs from data/sr25) through main(); then the
@@ -1821,9 +2407,10 @@ def run_csl_twin(smi: str, dev):
     the captured step:
       * K3 on every train batch of the fold equals its plain version
         (rtol 1e-5, atol 1e-4: f32 sums in another order);
-      * K3's launches over the fold, counted by the profiler (warm-up
-        steps and the accuracy eval are the wrapper's eager calls, the
-        rest graph replays), are one per graphed step;
+      * K3's launches over the fold are one per graphed step: its nodes
+        in the captured graph times the replays (`_GraphLedger`; warm-up
+        steps and the accuracy eval are the wrapper's eager calls), and
+        the profiler sees it at least once and never more often;
       * from the fold's initial weights, the first two eager train
         losses under K3 equal the default impl's at rel 1e-3;
       * the fold's losses against the default impl's: CSL's graphs are
@@ -1874,10 +2461,17 @@ def run_csl_twin(smi: str, dev):
 
     zemb.set_impl("pallas")
     try:
+        # the fold under the ledger and the profiler; the wrapper counts
+        # the captured launch, which runs nothing
+        ledger = _GraphLedger()
         zemb_gather.launches = 0
-        fold, prof = _profiled(
-            lambda: run_csl.run_fold(args, feats, folds, 0, spec, dev))
-        eager = zemb_gather.launches - 1  # the capture runs nothing
+        with ledger.watch():
+            fold, prof = _profiled(
+                lambda: run_csl.run_fold(args, feats, folds, 0, spec, dev))
+        eager = zemb_gather.launches - ledger.nodes("zemb_rows_kernel")
+        graphed = ledger.launches("zemb_rows_kernel")
+        seen = _kernel_events(prof, "zemb_rows_kernel") - eager
+        want = args.epochs * fold["steps"]
         model = NestedGINEff(run_csl.model_config(args), device=dev,
                              generator=torch.Generator().manual_seed(args.seed))
         check_pool_graph("run_csl", model, ce_graph_loss, train, spec,
@@ -1885,11 +2479,11 @@ def run_csl_twin(smi: str, dev):
                          rel_tol=(5e-2, 2e-1))
     finally:
         zemb.set_impl("countmat")
-    graphed = _kernel_events(prof, "zemb_rows_kernel") - eager
-    want = args.epochs * fold["steps"]
-    if graphed != want:
+    if graphed != want or not 1 <= seen <= graphed:
         raise AssertionError(f"run_csl: K3 ran {graphed} times in {want} "
-                             f"graphed steps")
+                             f"graphed steps ({ledger.nodes('zemb_rows_kernel')}"
+                             f" node(s) in {len(ledger.dots)} graph(s); the "
+                             f"profiler saw {seen})")
 
     def first_steps(impl):
         """The fold's first two eager train losses from its initial
@@ -1930,12 +2524,13 @@ def run_csl_twin(smi: str, dev):
          k3_first_loss_rel=first_rel, k3_fold_acc=fold["acc"],
          k3_loss=json.dumps(fold["losses"]), k3_max_loss_rel=rel,
          default_again_max_loss_rel=spread, k3_graphed_launches=graphed,
-         k3_eager_launches=eager, seconds=round(seconds, 3),
+         k3_graphed_profiler_seen=seen, k3_eager_launches=eager, seconds=round(seconds, 3),
          card=json.dumps(smi), ok=True)
     return graphed
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2096,6 +2691,14 @@ def main() -> int:
     run_sr_twin(smi, dev)
     run_exp_twin(smi, dev)
     k3_csl = run_csl_twin(smi, dev)
+    # 11. the rest of the zoo: the k-GNNs, GINE+, the RGCN baseline and the
+    # registry (no port kernel on these paths)
+    with tempfile.TemporaryDirectory() as work:
+        run_qm9_kgnn_twins(work, smi, dev)
+        run_ogb_gineplus_twin(work, smi, dev)
+        run_zinc_gnn_twins(work, smi, dev)
+    check_zoo_registry(dev)
+    check_small_zoo(dev)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",
@@ -2118,6 +2721,7 @@ def main() -> int:
              launches=ppgn_launches["k4"],
              paths={"ppgn": ppgn_launches["k4"]}, **k4),
     ]
+    _log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,10 +13,11 @@ drivers run: `BatchSpec.from_graphs` / `BatchSpec.uniform` with the
 uniform per-copy blocks of `data/uniform_copies.py`), `batch_iterator`,
 the subgraph-copy levels of the copy family (`node_segment`,
 `node_segment2`, `center_idx`, `node_original` and their masks), the
-dense `orig_adj`, and the generic node-, edge- and copy-aligned graph
-extras. The flat layout, packed batches, the k-set levels (8.6) and the
-attention-bias and link-pair extras (8.3) wait for the slices that need
-them and raise, naming their ROADMAP queue.
+dense `orig_adj`, the k-set levels of the k-GNN family (`kset{k}_*` and
+`assign_2to3_*` extras), and the generic node-, edge- and copy-aligned
+graph extras. The flat layout, packed batches and the attention-bias and
+link-pair extras (8.3) wait for the slices that need them and raise,
+naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -36,11 +37,10 @@ _STRUCTURAL_KEYS = frozenset({
     "node_to_subgraph2", "num_subgraphs2", "subgraph2_to_subgraph",
     "center_idx", "node_to_original_node", "num_original_nodes",
     "orig_adj", "node_valid", "edge_valid",
+    "assign_2to3", "num_assign_2to3",
 })
 # the structural extras not ported yet: the ROADMAP queue that brings each
-# family (k-set keys: 8.6)
 _UNPORTED_KEYS = {
-    "assign_2to3": "8.6", "num_assign_2to3": "8.6",
     "attn_bias": "8.3", "pair_index": "8.3", "pair_label": "8.3",
 }
 
@@ -80,6 +80,14 @@ class BatchSpec:
     # dense budgets (NestedPPGN's orig_adj)
     max_nodes_per_graph: int = 0
     max_segments_per_graph: int = 0
+    # k-set graph budgets (the k-GNN family)
+    num_kset2: int = 0
+    num_kset2_edges: int = 0
+    num_kset2_assign: int = 0
+    num_kset3: int = 0
+    num_kset3_edges: int = 0
+    num_kset3_assign: int = 0
+    num_assign_2to3: int = 0
     # uniform layout: node id g*uniform_nodes + i, edge id
     # g*uniform_edges + k
     uniform_nodes: int = 0
@@ -196,17 +204,24 @@ def _graph_stats(g: GraphData) -> dict:
     s = {"nodes": g.num_nodes, "edges": g.num_edges, "enc_w": 0, "enc_rows": 0,
          "segments": int(ex.get("num_subgraphs", 0)),
          "segments2": int(ex.get("num_subgraphs2", 0)),
-         "original": int(ex.get("num_original_nodes", 0))}
+         "original": int(ex.get("num_original_nodes", 0)),
+         "a23": int(ex.get("num_assign_2to3", 0))}
     if g.enc_offsets is not None:
         nnz = np.diff(np.asarray(g.enc_offsets))
         s["enc_w"] = int(nnz.max()) if nnz.size else 0
         s["enc_rows"] = len(np.unique(_graph_row_hashes(g)))
+    for k in (2, 3):
+        if f"num_kset{k}" in ex:
+            s[f"kset{k}"] = int(ex[f"num_kset{k}"])
+            s[f"kset{k}_edges"] = int(ex[f"kset{k}_edge_index"].shape[1])
+            s[f"kset{k}_assign"] = int(ex[f"kset{k}_assign"].shape[1])
     return s
 
 
 def _per_graph_maxima(graphs) -> dict:
     stats = [_graph_stats(g) for g in graphs]
-    return {k: max(s[k] for s in stats) for k in stats[0]}
+    keys = set().union(*(s.keys() for s in stats))
+    return {k: max(s.get(k, 0) for s in stats) for k in keys}
 
 
 def _distinct_row_cap(graphs) -> int:
@@ -285,6 +300,14 @@ def _budgets_from(m: dict, scale: int, enc_layout: str) -> dict:
                        ("segments2", "num_segments2"),
                        ("original", "num_original")):
         kw[key] = _round_up(scale * m[level], 8) if m[level] else 0
+    kw["num_assign_2to3"] = _round_up(scale * m["a23"], 16) if m["a23"] else 0
+    for k in (2, 3):
+        sets = m.get(f"kset{k}", 0)
+        kw[f"num_kset{k}"] = _round_up(scale * sets, 8) if sets else 0
+        for part in ("edges", "assign"):
+            n = m.get(f"kset{k}_{part}", 0) if sets else 0
+            kw[f"num_kset{k}_{part}"] = (
+                _round_up(scale * n, 16) if sets else 0)
     if m["enc_w"]:
         kw["enc_width"] = _round_up(m["enc_w"], 8)
         if enc_layout == "dedup":
@@ -435,6 +458,8 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
         fields.update(_batch_segments2(graphs, n_sizes, node_off, spec))
     if "node_to_original_node" in ex0 and spec.num_original > 0:
         fields.update(_batch_original(graphs, n_sizes, node_off, spec))
+    for k, v in _batch_ksets(graphs, node_off, spec).items():
+        fields[EXTRAS_PREFIX + k] = v
     for k, v in _batch_named_extras(graphs, n_sizes, e_sizes, perms,
                                     node_off, edge_off, spec).items():
         fields[EXTRAS_PREFIX + k] = v
@@ -520,6 +545,107 @@ def _batch_original(graphs, n_sizes, node_off, spec: BatchSpec) -> dict:
     return {"node_original": node_original, "original_mask": om}
 
 
+def _batch_ksets(graphs, node_off, spec: BatchSpec) -> dict:
+    """The k-set levels of the k-GNN family, per level k with a budget:
+    the sets' iso types, owning graph, mask and owning copy; the
+    set-graph edges, receiver-sorted within each graph; the member-node
+    assignment; and, with both levels, the 2-set -> 3-set incidences.
+    Padding as the JAX batcher: padding set-graph senders point at the
+    last set (in range, gathered), padding receivers, assigned sets,
+    owning copies and owning graphs are out of range (the models mask
+    them), padding member nodes point at the last node."""
+    out: dict = {}
+    ex0 = graphs[0].extras or {}
+    seg_sizes = [int(_ex(g, "num_subgraphs", 0)) for g in graphs]
+    seg_off = np.concatenate([[0], np.cumsum(seg_sizes)])
+    set_offs = {}
+    for k in (2, 3):
+        budget = getattr(spec, f"num_kset{k}")
+        if not budget or f"num_kset{k}" not in ex0:
+            continue
+        sizes = [int(g.extras[f"num_kset{k}"]) for g in graphs]
+        if sum(sizes) > budget:
+            raise ValueError(f"{sum(sizes)} {k}-sets, budget {budget}")
+        off = np.concatenate([[0], np.cumsum(sizes)])
+        set_offs[k] = off
+        iso = np.zeros(budget, np.int32)
+        kgraph = np.full(budget, spec.num_graphs, np.int32)
+        mask = np.zeros(budget, bool)
+        to_sub = np.full(budget, spec.num_segments or budget, np.int32)
+        for i, g in enumerate(graphs):
+            iso[off[i]:off[i + 1]] = np.asarray(g.extras[f"kset{k}_iso"])
+            kgraph[off[i]:off[i + 1]] = i
+            shift = seg_off[i] if spec.num_segments else 0
+            to_sub[off[i]:off[i + 1]] = (
+                np.asarray(g.extras[f"kset{k}_to_subgraph"]) + shift)
+        mask[:off[-1]] = True
+
+        e_budget = getattr(spec, f"num_kset{k}_edges")
+        e_sizes = [int(g.extras[f"kset{k}_edge_index"].shape[1])
+                   for g in graphs]
+        if sum(e_sizes) > e_budget:
+            raise ValueError(f"{sum(e_sizes)} {k}-set edges, budget "
+                             f"{e_budget}")
+        ksend = np.full(e_budget, budget - 1, np.int32)
+        krecv = np.full(e_budget, budget, np.int32)
+        kemask = np.zeros(e_budget, bool)
+        eo = 0
+        for i, g in enumerate(graphs):
+            ei = np.asarray(g.extras[f"kset{k}_edge_index"])
+            ei = ei[:, np.lexsort((ei[0], ei[1]))]
+            ksend[eo:eo + e_sizes[i]] = ei[0] + off[i]
+            krecv[eo:eo + e_sizes[i]] = ei[1] + off[i]
+            eo += e_sizes[i]
+        kemask[:eo] = True
+
+        a_budget = getattr(spec, f"num_kset{k}_assign")
+        a_sizes = [int(g.extras[f"kset{k}_assign"].shape[1]) for g in graphs]
+        if sum(a_sizes) > a_budget:
+            raise ValueError(f"{sum(a_sizes)} {k}-set members, budget "
+                             f"{a_budget}")
+        anode = np.full(a_budget, spec.num_nodes - 1, np.int32)
+        aset = np.full(a_budget, budget, np.int32)
+        amask = np.zeros(a_budget, bool)
+        ao = 0
+        for i, g in enumerate(graphs):
+            asg = np.asarray(g.extras[f"kset{k}_assign"])
+            anode[ao:ao + a_sizes[i]] = asg[0] + node_off[i]
+            aset[ao:ao + a_sizes[i]] = asg[1] + off[i]
+            ao += a_sizes[i]
+        amask[:ao] = True
+        out.update({
+            f"kset{k}_iso": iso,
+            f"kset{k}_graph": kgraph,
+            f"kset{k}_mask": mask,
+            f"kset{k}_to_subgraph": to_sub,
+            f"kset{k}_senders": ksend,
+            f"kset{k}_receivers": krecv,
+            f"kset{k}_edge_mask": kemask,
+            f"kset{k}_assign_node": anode,
+            f"kset{k}_assign_set": aset,
+            f"kset{k}_assign_mask": amask,
+        })
+
+    if spec.num_assign_2to3 and "assign_2to3" in ex0:
+        B = spec.num_assign_2to3
+        row = np.zeros(B, np.int32)
+        col = np.zeros(B, np.int32)
+        m = np.zeros(B, bool)
+        o = 0
+        for i, g in enumerate(graphs):
+            a = np.asarray(g.extras["assign_2to3"])
+            n = a.shape[1]
+            if o + n > B:
+                raise ValueError(f"2-to-3 incidences exceed the budget {B}")
+            row[o:o + n] = a[0] + set_offs[2][i]
+            col[o:o + n] = a[1] + set_offs[3][i]
+            o += n
+        m[:o] = True
+        out.update({"assign_2to3_row": row, "assign_2to3_col": col,
+                    "assign_2to3_mask": m})
+    return out
+
+
 def _ex(g: GraphData, key: str, default=None):
     return (g.extras or {}).get(key, default)
 
@@ -531,13 +657,13 @@ def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
     copy, e.g. the node-level targets of the copy models) padded to the
     segment budget, and `orig_adj` stacked into (G, K, K); per-graph
     scalars (`num_*`) and the copy-level keys that have their own fields
-    are skipped, as the JAX batcher does. The k-set, attention-bias and
-    pair extras raise, naming their ROADMAP queue."""
+    are skipped, as the JAX batcher does, and so are the k-set extras
+    (`_batch_ksets` lays them out). The attention-bias and pair extras
+    raise, naming their ROADMAP queue."""
     out: dict = {}
     ex0 = graphs[0].extras or {}
     for key in ex0:
-        queue = ("8.6" if key.startswith(("kset", "num_kset"))
-                 else _UNPORTED_KEYS.get(key))
+        queue = _UNPORTED_KEYS.get(key)
         if queue:
             raise NotImplementedError(
                 f"extras[{key!r}]: its batch fields are ROADMAP queue {queue}")
@@ -552,7 +678,8 @@ def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
                 adj[i, :a.shape[0], :a.shape[1]] = a
             out[key] = adj
             continue
-        if key in _STRUCTURAL_KEYS or key.startswith("num_"):
+        if (key in _STRUCTURAL_KEYS or key.startswith("num_")
+                or key.startswith("kset")):
             continue
         v0 = np.asarray(v0)
         if v0.ndim >= 1 and v0.shape[0] == graphs[0].num_nodes:

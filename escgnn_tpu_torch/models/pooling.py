@@ -1,9 +1,9 @@
-"""Graph pooling for OgbGNN (counterpart of the parts of
-`escgnn_tpu/models/pooling.py` that `models/ogb_gnn.py` uses):
-`to_dense_batch`, `Set2Set` and `global_sort_pool`.
+"""Graph pooling (counterpart of `escgnn_tpu/models/pooling.py`):
+`to_dense_batch`, `Set2Set`, `global_sort_pool`, `GlobalAttentionPool`
+and `graph_pool`, the dispatch that BaselineGNN pools through.
 
-`GlobalAttentionPool`, `TopKPool`, `dense_diff_pool` and graclus come
-with the TU driver (ROADMAP 9).
+`TopKPool`, `dense_diff_pool` and graclus come with the TU driver
+(ROADMAP 9).
 """
 
 from __future__ import annotations
@@ -13,7 +13,12 @@ from torch import nn
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.models.layers import TorchDense
-from escgnn_tpu_torch.ops.segment import segment_softmax, segment_sum
+from escgnn_tpu_torch.ops.segment import (
+    segment_max,
+    segment_mean,
+    segment_softmax,
+    segment_sum,
+)
 
 
 def to_dense_batch(x, batch: GraphBatch, max_nodes: int):
@@ -82,7 +87,7 @@ class Set2Set(nn.Module):
         q_star = x.new_zeros(G, 2 * F)
         for _ in range(self.processing_steps):
             carry, q = self.lstm(carry, q_star)
-            e = (x * q[ids.long()]).sum(-1)
+            e = (x * q.index_select(0, ids.long())).sum(-1)
             a = segment_softmax(e, ids, G, mask=mask)
             r = segment_sum(x * a[:, None], ids, G, mask=mask)
             q_star = torch.cat([q, r], dim=-1)
@@ -104,3 +109,67 @@ def global_sort_pool(x, batch: GraphBatch, k: int, max_nodes: int):
     top = torch.where(kept[..., None], top, torch.zeros((), dtype=top.dtype,
                                                         device=top.device))
     return top.reshape(dense.shape[0], k * x.shape[-1])
+
+
+class GlobalAttentionPool(nn.Module):
+    """PyG GlobalAttention: a gate (a Linear, or Linear -> ReLU -> Linear
+    with `gate_hidden`) softmax-normalized over each graph's nodes
+    weights their sum."""
+
+    def __init__(self, features: int, gate_hidden: int = 0, *,
+                 generator: torch.Generator):
+        super().__init__()
+        d = features
+        if gate_hidden:
+            self.gate_hidden = TorchDense(features, gate_hidden,
+                                          generator=generator)
+            d = gate_hidden
+        self.gate = TorchDense(d, 1, generator=generator)
+
+    def forward(self, x, batch: GraphBatch):
+        g = x
+        if hasattr(self, "gate_hidden"):
+            g = torch.relu(self.gate_hidden(g))
+        gate = self.gate(g)[:, 0]
+        G = batch.num_graphs
+        attn = segment_softmax(gate, batch.node_graph, G, mask=batch.node_mask)
+        return segment_sum(x * attn[:, None], batch.node_graph, G,
+                           mask=batch.node_mask)
+
+
+GRAPH_POOLS = ("add", "mean", "max", "attention", "set2set", "sort", "center")
+
+
+def graph_pool(module: nn.Module, how: str, x, batch: GraphBatch,
+               sort_k: int = 10):
+    """Node rows -> graph rows by `how`; `attention` and `set2set` use
+    `module.attn_pool` / `module.set2set`. `sort` keeps `sort_k` rows of
+    a per-graph budget of max(ceil(N / G), sort_k) nodes, as JAX sizes it
+    from the static shapes; `center` takes each graph's first node."""
+    G = batch.num_graphs
+    ng, nm = batch.node_graph, batch.node_mask
+    if how == "add":
+        return segment_sum(x, ng, G, mask=nm)
+    if how == "mean":
+        return segment_mean(x, ng, G, mask=nm)
+    if how == "max":
+        return segment_max(x, ng, G, mask=nm)
+    if how == "attention":
+        return module.attn_pool(x, batch)
+    if how == "set2set":
+        return module.set2set(x, batch)
+    if how == "sort":
+        m = max(-(-x.shape[0] // max(G, 1)), sort_k)
+        return global_sort_pool(x, batch, sort_k, m)
+    if how == "center":
+        return segment_sum(x, ng, G, mask=(batch.node_local == 0) & nm)
+    raise ValueError(how)
+
+
+def graph_pool_width(how: str, features: int, sort_k: int = 10) -> int:
+    """The width of `graph_pool`'s output rows for `features`-wide nodes."""
+    if how == "set2set":
+        return 2 * features
+    if how == "sort":
+        return sort_k * features
+    return features

@@ -15,7 +15,10 @@ else trains on deterministic synthetic molecules. Flags, defaults, cache
 keys, batches and printed lines are the JAX driver's. `--model
 NestedPPGN` runs the two-level dense PPGN on node-rooted subgraph copies
 (with the original adjacency) in ragged batches, its dense per-copy
-budget the largest copy of the data.
+budget the largest copy of the data. `--model GINEPlus` runs GINE+ (a
+virtual node, `--multihop_k` hop levels) on the multihop edge lists of
+the plain graphs, in uniform per-graph blocks without an encoding under
+`--layout uniform`.
 
 The batches are the uniform per-graph blocks with deduplicated ESC rows
 (`--layout uniform`, the default) or the ragged union with the width
@@ -46,12 +49,14 @@ from escgnn_tpu_torch.data.prefetch import pool_size, stack_split
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
+from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
 from escgnn_tpu_torch.featurize.node_subgraphs import (
     NodeSubgraphConfig,
     create_node_subgraphs,
 )
 from escgnn_tpu_torch.featurize.rw import attach_return_prob
 from escgnn_tpu_torch.featurize.transform import featurize_many
+from escgnn_tpu_torch.models.gine_plus import GINEPlusConfig, GINEPlusNetwork
 from escgnn_tpu_torch.models.nested_ppgn import NestedPPGN, NestedPPGNConfig
 from escgnn_tpu_torch.models.ogb_gnn import (
     POOLINGS,
@@ -80,9 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="ogbg-molhiv")
     p.add_argument("--model", default="GNN",
                    choices=["GNN", "GINEPlus", "NestedPPGN"],
-                   help="GNN = the efficient OGB GNN; NestedPPGN = the "
-                   "two-level PPGN on node-rooted copies; GINEPlus raises "
-                   "(not ported)")
+                   help="GNN = the efficient OGB GNN; GINEPlus = GINE+ on "
+                   "multihop edges; NestedPPGN = the two-level PPGN on "
+                   "node-rooted copies")
     p.add_argument("--multihop_k", type=int, default=3,
                    help="GINEPlus: number of hop levels K")
     p.add_argument("--h", type=int, default=4)
@@ -133,11 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a flag whose module the port does not have yet, naming
-    its ROADMAP queue, or for one that cannot apply."""
-    if args.model == "GINEPlus":
-        raise NotImplementedError(
-            "--model GINEPlus: models/gine_plus.py is ROADMAP queue 8.5")
+    """Raise for a flag that cannot apply."""
     if args.dump_worst and args.dataset == "ogbg-ppa":
         raise ValueError("--dump_worst scores a per-task BCE; ogbg-ppa is "
                          "one 37-class label")
@@ -162,10 +163,13 @@ def build_splits(args) -> tuple[dict, bool]:
     key = f"_rp{args.use_rp}" if args.use_rp else ""
     if args.synth_label != "parity":
         key += f"_lab{args.synth_label}"
-    if args.model == "NestedPPGN":
-        key += "_nppgn"
+    key += {"GNN": "", "GINEPlus": f"_ginep{args.multihop_k}",
+            "NestedPPGN": "_nppgn"}[args.model]
 
     def featurize(graphs):
+        if args.model == "GINEPlus":
+            return [make_multihop_edges(g, k=args.multihop_k)
+                    for g in graphs]
         if args.model == "NestedPPGN":
             scfg = NodeSubgraphConfig(h=args.h, use_rd=True,
                                       keep_orig_adj=True)
@@ -185,9 +189,10 @@ def build_splits(args) -> tuple[dict, bool]:
 
 def build_spec(args, splits: dict) -> BatchSpec:
     all_graphs = [g for s in splits.values() for g in s]
-    if args.layout == "uniform" and args.model == "GNN":
-        return BatchSpec.uniform(all_graphs, args.batch_size,
-                                 enc_layout="dedup")
+    if args.layout == "uniform" and args.model in ("GNN", "GINEPlus"):
+        return BatchSpec.uniform(
+            all_graphs, args.batch_size,
+            enc_layout="dedup" if args.model == "GNN" else "width")
     return BatchSpec.from_graphs(all_graphs, args.batch_size)
 
 
@@ -198,6 +203,12 @@ def model_config(args) -> OgbGNNConfig:
         graph_pooling=args.graph_pooling,
         subgraph_pooling=args.subgraph_pooling, rni=args.rni,
         use_rp=args.use_rp or 0, ppa_encoders=args.dataset == "ogbg-ppa")
+
+
+def gine_plus_config(args) -> GINEPlusConfig:
+    return GINEPlusConfig(hidden=args.emb_dim, out_dim=args.num_tasks,
+                          num_layers=args.num_layer, dropout=args.drop_ratio,
+                          k=args.multihop_k, virtual_node=True)
 
 
 def max_copy_nodes(graphs) -> int:
@@ -220,6 +231,9 @@ def build_model(args, device, graphs=None):
     generator seeded with it too. NestedPPGN reads its dense budget and
     input widths from `graphs` (every split's featurized graphs)."""
     gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "GINEPlus":
+        return GINEPlusNetwork(gine_plus_config(args), device=device,
+                               generator=gen, rng_seed=args.seed)
     if args.model == "NestedPPGN":
         g0 = graphs[0]
         return NestedPPGN(nested_ppgn_config(args, max_copy_nodes(graphs)),

@@ -1,5 +1,5 @@
 """QM9 target regression on PyTorch (the twin of the repository's
-`run_qm9.py`, its NestedGIN_eff and copy-model paths):
+`run_qm9.py`):
 
     python -m escgnn_tpu_torch.run_qm9 [--target 0] [--device cuda]
 
@@ -9,8 +9,12 @@ features, mean pooling; MSE training loss on train-standardized targets,
 MAE evaluation in the reference's units (`QM9_CONVERSION`), shuffled
 10/10/80 test/val/train split. `--model NGNN|I2GNN` runs the copy
 models on integer atom and bond types (the argmax of the one-hots), on
-`--copy_layout` uniform or ragged copy batches. Reads the real gdb9.sdf
-under
+`--copy_layout` uniform or ragged copy batches. `--model k1_GNN` runs the
+k-GNN on the distance-extended graphs; `k12_GNN`, `k13_GNN` and
+`k123_GNN` the nested k-GNNs on their node-rooted copies (h-hop, with
+resistance distances) with the k-set graphs of each copy attached (all
+2-sets and connected 3-sets, Malkin neighbourhoods), all in ragged
+batches. Reads the real gdb9.sdf under
 `<data_dir>/qm9/raw/` when it is there, else trains on synthetic
 QM9-shaped molecules. Flags, defaults, batches and log lines are the JAX
 driver's.
@@ -25,6 +29,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +43,13 @@ from escgnn_tpu_torch.data.qm9 import (
 )
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
+from escgnn_tpu_torch.featurize.kset import attach_kset_graphs
+from escgnn_tpu_torch.featurize.node_subgraphs import (
+    NodeSubgraphConfig,
+    create_node_subgraphs,
+)
 from escgnn_tpu_torch.featurize.transform import featurize_many
+from escgnn_tpu_torch.models.kgnn_models import KGNN, KGNNConfig
 from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
@@ -53,16 +64,19 @@ from escgnn_tpu_torch.train.fit import fit
 from escgnn_tpu_torch.train.loop import adam_with_plateau
 from escgnn_tpu_torch.utils.rundir import start_run
 
-KGNN_MODELS = ("k1_GNN", "k12_GNN", "k13_GNN", "k123_GNN")
+# the k-GNNs and their k-set levels
+KGNN_LEVELS = {"k1_GNN": (), "k12_GNN": (2,), "k13_GNN": (3,),
+               "k123_GNN": (2, 3)}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m escgnn_tpu_torch.run_qm9")
     p.add_argument("--target", type=int, default=0)
     p.add_argument("--model", default="NestedGIN_eff",
-                   choices=["NestedGIN_eff", "NGNN", "I2GNN", *KGNN_MODELS],
+                   choices=["NestedGIN_eff", "NGNN", "I2GNN", *KGNN_LEVELS],
                    help="NGNN / I2GNN run on the copy transforms of the "
-                   "typed graphs; the k-GNNs raise (not ported)")
+                   "typed graphs; k12/k13/k123 are the nested k-GNNs, "
+                   "k1_GNN the plain one")
     p.add_argument("--h", type=int, default=3)
     p.add_argument("--layers", type=int, default=5)
     p.add_argument("--hidden", type=int, default=256)
@@ -97,19 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP queue, for a flag
-    whose module the port does not have yet."""
-    if args.model in KGNN_MODELS:
-        raise NotImplementedError(
-            f"--model {args.model}: models/kgnn_models.py is ROADMAP "
-            f"queue 8.6")
-
-
-def build_splits(args) -> tuple[dict, float, float, bool]:
+def build_splits(args, timings: Optional[dict] = None
+                 ) -> tuple[dict, float, float, bool]:
     """The featurized, distance-extended test/val/train splits (shuffled
     10/10/80) with target `args.target` standardized by the train mean
-    and (population) std; returns (splits, mean, std, is_real)."""
+    and (population) std; returns (splits, mean, std, is_real).
+    `timings`, a dict, receives the seconds of the k-set enumeration
+    (`kset`) of the nested k-GNNs."""
     raw, is_real = qm9_splits(args.data_dir, num_graphs=args.num_graphs,
                               seed=args.seed)
     print(f"qm9 data: {'real gdb9.sdf' if is_real else 'synthetic'} "
@@ -118,6 +126,16 @@ def build_splits(args) -> tuple[dict, float, float, bool]:
         # the copy models embed integer node and bond types
         feats = featurize_copies([_typed(g) for g in raw], args.model,
                                  args.h)
+    elif args.model in KGNN_LEVELS:
+        feats = [append_distance_edge_attr(g) for g in raw]
+        if args.model != "k1_GNN":
+            scfg = NodeSubgraphConfig(h=args.h, use_rd=True)
+            feats = [create_node_subgraphs(g, scfg) for g in feats]
+            t0 = time.time()
+            feats = [attach_kset_graphs(g, ks=KGNN_LEVELS[args.model],
+                                        malkin=True) for g in feats]
+            if timings is not None:
+                timings["kset"] = time.time() - t0
     else:
         ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
         feats = featurize_many(raw, ecfg, num_workers=args.num_workers,
@@ -158,11 +176,22 @@ def model_config(args) -> NestedGINEffConfig:
     )
 
 
-def build_model(args, in_dim: int, edge_attr_dim: int, device):
-    """The twin's model, its weights drawn from `args.seed`."""
+def kgnn_config(args) -> KGNNConfig:
+    nested = args.model != "k1_GNN"
+    return KGNNConfig(levels=KGNN_LEVELS[args.model], use_rd=nested,
+                      use_pos=True, nested=nested, out_dim=1)
+
+
+def build_model(args, in_dim: int, edge_attr_dim: int, device,
+                has_pos: bool = True):
+    """The twin's model, its weights drawn from `args.seed`; `has_pos`:
+    the k-GNN's batches carry `pos` (the copy transform drops it)."""
     gen = torch.Generator().manual_seed(args.seed)
     if args.model in COPY_MODELS:
         return copy_model(args.model, args, device, gen)
+    if args.model in KGNN_LEVELS:
+        return KGNN(kgnn_config(args), x_dim=in_dim, edge_dim=edge_attr_dim,
+                    has_pos=has_pos, device=device, generator=gen)
     return NestedGINEff(model_config(args), in_dim=in_dim,
                         edge_attr_dim=edge_attr_dim, device=device,
                         generator=gen)
@@ -181,7 +210,6 @@ def main(argv=None) -> dict:
     converted units and one record per epoch) for callers such as the
     smoke run."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
     # f32 means f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,13 +218,17 @@ def main(argv=None) -> dict:
     res_dir = start_run(args, "escgnn_tpu_torch.run_qm9", "qm9", __file__,
                         argv)
     t0 = time.time()
-    splits, mean, std, is_real = build_splits(args)
+    timings: dict = {}
+    splits, mean, std, is_real = build_splits(args, timings)
     data_seconds = time.time() - t0
     print(f"data: {data_seconds:.1f}s mean={mean:.4f} std={std:.4f}")
 
     if args.model in COPY_MODELS:
         splits, spec, _ = copy_layout_spec(splits, args.batch_size,
                                            args.copy_layout)
+    elif args.model in KGNN_LEVELS:
+        spec = BatchSpec.from_graphs(
+            [g for s in splits.values() for g in s], args.batch_size)
     else:
         # uniform per-graph blocks + deduplicated ESC rows, the flagship
         # layout
@@ -205,7 +237,8 @@ def main(argv=None) -> dict:
     print("spec:", spec)
 
     g0 = splits["train"][0]
-    model = build_model(args, g0.x.shape[1], g0.edge_attr.shape[1], device)
+    model = build_model(args, g0.x.shape[1], g0.edge_attr.shape[1], device,
+                        has_pos=g0.pos is not None)
     opt = adam_with_plateau(model.parameters(), args.lr,
                             grad_clip=args.grad_clip,
                             capturable=device.type == "cuda")
@@ -215,7 +248,8 @@ def main(argv=None) -> dict:
               log_path=os.path.join(res_dir, "log.txt"))
     print(f"best val {res['best_val']:.5f} test {res['best_test']:.5f}")
     return dict(res, mean=mean, std=std, conversion=conv, is_real=is_real,
-                res_dir=res_dir, spec=spec, data_seconds=data_seconds)
+                res_dir=res_dir, spec=spec, data_seconds=data_seconds,
+                kset_seconds=timings.get("kset", 0.0))
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@
 
 NestedGIN_eff with node/edge type embeddings (or the copy models NGNN
 and I2GNN with `--model`, on `--copy_layout` uniform, bucketed or ragged
-copy batches), L1 loss on mean/std normalized targets, Adam with a
+copy batches, or `--model GNN`, the plain RGCN baseline on the ragged
+width batches of the ESC-featurized graphs, as the JAX driver builds
+them), L1 loss on mean/std normalized targets, Adam with a
 plateau learning rate, MAE x std reporting. It reads the real ZINC
 subset when its pickle is under --data_dir, else trains on deterministic
 synthetic molecules. Flags, defaults, cache keys, batches and log lines
@@ -32,6 +34,7 @@ from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
 from escgnn_tpu_torch.featurize.transform import featurize_many
+from escgnn_tpu_torch.models.baselines import RGCNBaseline, RGCNBaselineConfig
 from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
@@ -61,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="NestedGIN_eff",
                    choices=["NestedGIN_eff", "NGNN", "I2GNN", "GNN"],
                    help="NGNN / I2GNN run on the copy transforms instead "
-                   "of the ESC encoding; GNN raises (not ported)")
+                   "of the ESC encoding; GNN is the plain RGCN baseline")
     p.add_argument("--patience", type=int, default=20)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
@@ -99,9 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError, naming its ROADMAP queue, for a flag
     whose module the port does not have yet."""
-    if args.model == "GNN":
-        raise NotImplementedError(
-            "--model GNN: models/baselines.py is ROADMAP queue 8.7")
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the parallel modes are ROADMAP queue 10")
@@ -124,6 +124,9 @@ def build_model(args, device):
     gen = torch.Generator().manual_seed(args.seed)
     if args.model in COPY_MODELS:
         return copy_model(args.model, args, device, gen)
+    if args.model == "GNN":
+        return RGCNBaseline(RGCNBaselineConfig(num_layers=args.layers),
+                            device=device, generator=gen)
     return NestedGINEff(zinc_model_config(args), device=device,
                         generator=gen)
 
@@ -182,6 +185,11 @@ def main(argv=None) -> dict:
         splits, spec, batch_transform = copy_layout_spec(
             splits, args.batch_size, args.copy_layout,
             args.reshuffle_membership)
+    elif args.model == "GNN":
+        # the ragged union with the width encoding (the RGCN reads none
+        # of it; the JAX driver batches it all the same)
+        spec = BatchSpec.from_graphs(
+            [g for s in splits.values() for g in s], args.batch_size)
     else:
         # uniform per-graph blocks + deduplicated ESC rows, the flagship
         # layout

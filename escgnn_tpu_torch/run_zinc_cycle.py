@@ -9,8 +9,10 @@ per-node count of 3..6-cycles (`--target` 0..3) of synthetic ZINC
 molecules, standardized by the train+val statistics of the raw graphs.
 `--model NGNN|I2GNN` runs the copy models with a per-node head: one copy
 row per original node, its target in `extras['y_seg']`, on the
-`--copy_layout` uniform, bucketed or ragged copy batches. Flags,
-defaults, batches and log lines are the JAX driver's.
+`--copy_layout` uniform, bucketed or ragged copy batches. `--model GNN`
+runs the plain RGCN baseline with a per-node head on the raw graphs, in
+ragged batches. Flags, defaults, batches and log lines are the JAX
+driver's.
 
 An epoch is one pool step (`train/loop.py`): on a CUDA device one train
 step captured into a CUDA graph and replayed over a device-resident
@@ -32,6 +34,7 @@ from escgnn_tpu_torch.data.molecules import synthetic_zinc
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
 from escgnn_tpu_torch.featurize.transform import featurize_many
+from escgnn_tpu_torch.models.baselines import RGCNBaseline, RGCNBaselineConfig
 from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
@@ -58,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="NestedGIN_eff",
                    choices=["NestedGIN_eff", "NGNN", "I2GNN", "GNN"],
                    help="NGNN / I2GNN run on the copy transforms with a "
-                   "per-node head; GNN raises (not ported)")
+                   "per-node head; GNN is the plain RGCN baseline")
     p.add_argument("--h", type=int, default=3)
     p.add_argument("--layers", type=int, default=5)
     p.add_argument("--hidden", type=int, default=256)
@@ -93,14 +96,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP queue, for a flag
-    whose module the port does not have yet."""
-    if args.model == "GNN":
-        raise NotImplementedError(
-            "--model GNN: models/baselines.py is ROADMAP queue 8.7")
-
-
 def build_splits(args) -> tuple[dict, float, float]:
     """The featurized 80/10/10 splits with standardized per-node targets,
     and the target's mean and std (train+val of the raw graphs, ddof 1).
@@ -121,6 +116,8 @@ def build_splits(args) -> tuple[dict, float, float]:
         for g, r in zip(feats, raw):
             g.extras["y_seg"] = np.asarray(r.y, np.float32)
             g.y = None
+    elif args.model == "GNN":
+        feats = raw  # the plain RGCN runs on the raw graphs
     else:
         ecfg = EscConfig(h=args.h, use_rd=True, self_loop=True)
         feats = featurize_many(raw, ecfg, num_workers=args.num_workers)
@@ -145,6 +142,10 @@ def build_model(args, device):
     gen = torch.Generator().manual_seed(args.seed)
     if args.model in COPY_MODELS:
         return copy_model(args.model, args, device, gen, node_level=True)
+    if args.model == "GNN":
+        return RGCNBaseline(RGCNBaselineConfig(num_layers=args.layers,
+                                               node_level=True),
+                            device=device, generator=gen)
     return NestedGINEff(model_config(args), device=device, generator=gen)
 
 
@@ -158,7 +159,6 @@ def main(argv=None) -> dict:
     """Train and evaluate; returns the run's numbers (best val/test MAE
     and one record per epoch) for callers such as the smoke run."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
     # f32 means f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -177,6 +177,9 @@ def main(argv=None) -> dict:
         splits, spec, batch_transform = copy_layout_spec(
             splits, args.batch_size, args.copy_layout,
             args.reshuffle_membership)
+    elif args.model == "GNN":
+        spec = BatchSpec.from_graphs([g for s in splits.values() for g in s],
+                                     args.batch_size)
     else:
         # uniform per-graph blocks + deduplicated ESC rows, the flagship
         # layout

@@ -1,14 +1,17 @@
 """Carry a flax model state (NestedGINEff, PPGN, OgbGNN, NGNN, I2GNN,
-NestedPPGN) into the
-PyTorch model.
+NestedPPGN, BaselineGNN, RGCNBaseline, IDGNN, GINEPlusNetwork, KGNN)
+into the PyTorch model.
 
 The flax `params` and `batch_stats` trees arrive as nested dicts of numpy
 arrays (the caller converts; this module imports no JAX). Names map
 one to one, with these rules:
-  * flax creates each NestedGINEff conv's MLP in the parent scope, as a
-    top-level `MLP_<i>`; here it lives inside its conv: `MLP_<i>` ->
-    `conv<i+1>.mlp` (only that exact top-level name: OgbGNN's
-    `mlp_virtualnode_<i>` keeps its name);
+  * flax creates each NestedGINEff (and BaselineGNN GIN) conv's MLP in
+    the parent scope, as a top-level `MLP_<i>`; here it lives inside its
+    conv: `MLP_<i>` -> `conv<i+1>.mlp` (only that exact top-level name:
+    OgbGNN's `mlp_virtualnode_<i>` keeps its name). A model whose GIN
+    convs hold two MLPs (IDGNN: `mlp`, `mlp_id`) says so with
+    `flax_mlps_per_conv = 2`: `MLP_<2i>` -> `conv<i+1>.mlp`,
+    `MLP_<2i+1>` -> `conv<i+1>.mlp_id`;
   * a `FeatureSumEncoder` table `emb_<i>/embedding` is the encoder's
     parameter `emb_<i>`;
   * leaf names: `kernel` -> `weight` (a Dense kernel transposed: flax
@@ -16,8 +19,11 @@ one to one, with these rules:
     flax's (width, in, out) to nn.Conv1d's (out, in, width)), `scale` and
     `embedding` -> `weight`, batch statistics `mean`/`var` ->
     `running_mean`/`running_var`;
-  * everything else keeps its name (`z_initial`, `eps`, `bias`, the LSTM
-    gates `ii` ... `ho`, ...).
+  * everything else keeps its name and its flax layout (`z_initial`,
+    `eps`, `bias`, the LSTM gates `ii` ... `ho`, RGCN's `w_rel` (R, F, F'),
+    GAT's `att_src` / `att_dst` / `att`, PNA's `w_pre` / `b_pre` /
+    `w_post` / `b_post`, GINE+'s `v0`, ...): only a leaf named `kernel`
+    is transposed.
 The load is strict: every flax leaf must land on a model tensor of the
 same shape and every model tensor must be filled, or it raises.
 """
@@ -41,11 +47,12 @@ def _flatten(tree: dict, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_key(path, leaf_map) -> str:
+def _torch_key(path, leaf_map, mlps_per_conv: int = 1) -> str:
     parts = list(path)
     m = re.fullmatch(r"MLP_(\d+)", parts[0])
     if m:
-        parts[:1] = [f"conv{int(m.group(1)) + 1}", "mlp"]
+        conv, j = divmod(int(m.group(1)), mlps_per_conv)
+        parts[:1] = [f"conv{conv + 1}", "mlp_id" if j else "mlp"]
     if (len(parts) > 1 and parts[-1] == "embedding"
             and re.fullmatch(r"emb_\d+", parts[-2])):
         return ".".join(parts[:-1])
@@ -53,7 +60,8 @@ def _torch_key(path, leaf_map) -> str:
     return ".".join(parts)
 
 
-def flax_to_state_dict(params: dict, batch_stats: dict) -> dict:
+def flax_to_state_dict(params: dict, batch_stats: dict,
+                       mlps_per_conv: int = 1) -> dict:
     """Flat {torch state_dict key: tensor} from the two flax trees."""
     out = {}
     for leaf_map, tree in ((_PARAM_LEAF, params), (_STAT_LEAF, batch_stats)):
@@ -61,7 +69,7 @@ def flax_to_state_dict(params: dict, batch_stats: dict) -> dict:
             a = np.asarray(value, np.float32)
             if path[-1] == "kernel":
                 a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
-            key = _torch_key(path, leaf_map)
+            key = _torch_key(path, leaf_map, mlps_per_conv)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key!r}")
             # a writable C-ordered copy (keeps 0-d leaves such as eps 0-d)
@@ -72,7 +80,8 @@ def flax_to_state_dict(params: dict, batch_stats: dict) -> dict:
 def load_flax_variables(model: torch.nn.Module, params: dict,
                         batch_stats: dict) -> None:
     """Fill `model` in place from flax `params` / `batch_stats`."""
-    src = flax_to_state_dict(params, batch_stats)
+    src = flax_to_state_dict(params, batch_stats,
+                             getattr(model, "flax_mlps_per_conv", 1))
     dst = model.state_dict()
     missing = sorted(set(dst) - set(src))
     unused = sorted(set(src) - set(dst))

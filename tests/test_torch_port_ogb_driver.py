@@ -213,7 +213,6 @@ def test_main_ppa_and_ragged(tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--model", "GINEPlus"], NotImplementedError, "8.5"),
     (["--dataset", "ogbg-ppa", "--dump_worst", "3"], ValueError,
      "dump_worst"),
 ])

@@ -167,8 +167,8 @@ def _edge_graphs(cls, extra_key=None):
 def test_edge_aligned_extras_and_refused_keys():
     """Edge-aligned extras ride the receiver sort like edge_attr (equal
     to JAX); a copy-level key without its copy budget is skipped, as the
-    JAX batcher skips it; the k-set and pair extras raise with their
-    queue."""
+    JAX batcher skips it, and so is a k-set key without its k-set
+    budget; the pair extras raise with their queue."""
     from escgnn_tpu.data.container import GraphData as JGraphData
 
     tg, jg = _edge_graphs(GraphData), _edge_graphs(JGraphData)
@@ -186,9 +186,14 @@ def test_edge_aligned_extras_and_refused_keys():
     assert set(got) == set(want) and "extras.node_to_subgraph" not in got
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    for key, queue in (("kset2_iso", "8.6"), ("pair_index", "8.3")):
-        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-            batch_arrays(_edge_graphs(GraphData, key), spec)
+    kset_t = _edge_graphs(GraphData, "kset2_iso")
+    kset_j = _edge_graphs(JGraphData, "kset2_iso")
+    got = batch_arrays(kset_t, BatchSpec.from_graphs(kset_t, 2))
+    want = _jax_arrays(j_pad_and_batch(kset_j,
+                                       JBatchSpec.from_graphs(kset_j, 2)))
+    assert set(got) == set(want) and not any("kset" in k for k in got)
+    with pytest.raises(NotImplementedError, match="queue 8.3"):
+        batch_arrays(_edge_graphs(GraphData, "pair_index"), spec)
 
 
 def _jax_mse(out, batch):

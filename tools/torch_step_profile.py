@@ -4,12 +4,16 @@
     python3 tools/torch_step_profile.py [--model flagship] [--steps 5] [--impl countmat]
     python3 tools/torch_step_profile.py --model ppgn --impl pallas --pool pallas
     python3 tools/torch_step_profile.py --model i2gnn [--layout bucketed]
+    python3 tools/torch_step_profile.py --model k123    # or gineplus
 
 Builds the batch and model of the flagship (NestedGINEff) or of the
 PPGN_eff counting path exactly as chip_smoke.py does, or the first train
 batch of the `run_zinc --model I2GNN|NGNN` main path at the JAX defaults
 (1000 synthetic molecules, batch 128, h 3, 256 x 5, uniform or bucketed
-copy blocks), takes
+copy blocks), or the first train batch of `run_qm9 --model k123_GNN`
+(1000 synthetic molecules, h 3, batch 64) or of `run_ogb_mol --model
+GINEPlus` (640 synthetic molecules, 300 x 6, k 3, dropout 0.65, batch
+32, uniform blocks), at the twins' defaults, takes
 3 warm-up steps, then profiles `--steps` train steps with torch.profiler
 (CPU and CUDA activities). Prints one JSON line: host ms per step (wall
 clock around synchronized steps), device busy ms per step (the union of
@@ -50,7 +54,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--model", default="flagship",
-                    choices=["flagship", "ppgn", "i2gnn", "ngnn"])
+                    choices=["flagship", "ppgn", "i2gnn", "ngnn", "k123",
+                             "gineplus"])
     ap.add_argument("--layout", default="uniform",
                     choices=["uniform", "bucketed"],
                     help="copy layout (i2gnn and ngnn only)")
@@ -111,6 +116,34 @@ def main() -> int:
         zargs = run_zinc.build_parser().parse_args(["--model", name])
         model = run_zinc.build_model(zargs, dev)
         loss_fn = l1_graph_loss
+    elif args.model == "k123":
+        from escgnn_tpu_torch import run_qm9
+
+        qargs = run_qm9.build_parser().parse_args(
+            ["--model", "k123_GNN", "--num_graphs", "1000"])
+        splits = run_qm9.build_splits(qargs)[0]
+        spec = BatchSpec.from_graphs([g for s in splits.values() for g in s],
+                                     qargs.batch_size)
+        batch = pad_and_batch(splits["train"][:qargs.batch_size], spec,
+                              device=dev)
+        g0 = splits["train"][0]
+        model = run_qm9.build_model(qargs, g0.x.shape[1],
+                                    g0.edge_attr.shape[1], dev,
+                                    has_pos=g0.pos is not None)
+        loss_fn = run_qm9.mse_loss
+    elif args.model == "gineplus":
+        from escgnn_tpu_torch import run_ogb_mol
+        from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+        from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
+        from escgnn_tpu_torch.train.loop import bce_graph_loss
+
+        oargs = run_ogb_mol.build_parser().parse_args(["--model", "GINEPlus"])
+        graphs = [make_multihop_edges(g, oargs.multihop_k)
+                  for g in synthetic_ogb_mol(640, seed=0, label_kind="tri")]
+        spec = BatchSpec.uniform(graphs, oargs.batch_size)
+        batch = pad_and_batch(graphs[:oargs.batch_size], spec, device=dev)
+        model = run_ogb_mol.build_model(oargs, dev)
+        loss_fn = bce_graph_loss
     elif args.model == "ppgn":
         batch, spec, _ = counting_batch(dev)
         model = PPGN(ppgn_config(spec.max_nodes_per_graph, args.pool),
