@@ -53,7 +53,17 @@ against its plain PyTorch version on the card, then drives these paths:
     and `[run_zinc_cycle_gnn]` (the RGCN baseline, 3 epochs each, with
     their `[pool_graph]`); `[zoo_registry]` (every name this slice
     registers, built by `get_model`, 3 steps each) and `[small_zoo]`
-    (card against CPU). No port kernel lies on these paths.
+    (card against CPU). No port kernel lies on these paths;
+  * GPS: `[run_gps]` (`run_gps.main` on configs/gps/zinc-GPS.yaml at its
+    widths, 64 x 4, 4 heads, batch 32, 3 graphed epochs on 512 graphs;
+    its `[pool_graph]`; `--eval_only` on the best checkpoint and
+    `--dump_attn`), `[gps_bench]` and `[gps_pep]` (the bench's GPS steps
+    on the uniform + dedup layout: 32 ZINC-shaped graphs at 64 x 4, 16
+    peptide-shaped graphs at 96 x 10; K1 against its plain version at
+    their (E, 64) and (E, 96) and once per layer in every step, eager and
+    graphed), `[run_gps_variants]` (the other 12 configs the twin runs,
+    2 epochs each at their own widths) and `[small_gps]` (every global
+    and local model and encoder, card against CPU).
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -286,6 +296,23 @@ class _GraphLedger:
         """Launches of kernels named `symbol` in the replays counted."""
         return sum(_dot_nodes(d, symbol) * n
                    for d, n in zip(self.dots, self.replays))
+
+
+def _captured_kernels(fn, symbol: str) -> tuple:
+    """(kernel nodes, nodes naming `symbol`) of one call of `fn` captured
+    into a CUDA graph (after a warm call on a side stream), read from the
+    graph's DOT dump: exact, where the profiler drops device records."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    ledger = _GraphLedger()
+    with ledger.watch():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+    return ledger.nodes("{KERNEL"), ledger.nodes(symbol)
 
 
 def _device_kernels(fn) -> int:
@@ -962,7 +989,7 @@ def run_zinc_twin(work: str, smi: str):
 
 def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
                      kernel=("k1", "segsum_kernel"), rel_tol=(1e-5, 1e-3),
-                     batch_transform=None, report=None):
+                     batch_transform=None, report=None, per_step: int = 1):
     """`[pool_graph]`: from one state snapshot of `model`, one epoch of a
     twin's train pool (its graphs, spec and model at full width) through
     the graphed pool step and one through eager steps. The first step's
@@ -971,10 +998,10 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     with atomics in no fixed order, and Adam amplifies that noise.
     `rel_tol=None` (a model with dropout: the two epochs draw other
     masks) compares nothing and checks that both losses are finite. The
-    kernel (label, symbol), K1 unless said, runs once per step of a
-    graphed epoch (None: no kernel on the path): one node of the captured
-    graph, replayed once per step (`_GraphLedger`), seen by the profiler
-    at least once and never more often. Prints
+    kernel (label, symbol), K1 unless said, runs `per_step` times per
+    step of a graphed epoch (None: no kernel on the path): `per_step`
+    nodes of the captured graph, replayed once per step (`_GraphLedger`),
+    seen by the profiler at least once and never more often. Prints
     both ms/step, the device's busy time per step, the launches per eager
     step, the seconds the pool took to build and the peak device memory
     of the graphed epoch; returns the kernel's launches in the graphed
@@ -1041,10 +1068,11 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     if kernel is not None:
         label, symbol = kernel
         n, seen = ledger.launches(symbol), _kernel_events(prof, symbol)
-        if n != steps or not 1 <= seen <= n:
+        if n != steps * per_step or not 1 <= seen <= n:
             raise AssertionError(
                 f"{twin}: {label} ran {n} times in a graphed epoch of "
-                f"{steps} steps ({ledger.nodes(symbol)} node(s) in the "
+                f"{steps} steps, not {per_step} per step "
+                f"({ledger.nodes(symbol)} node(s) in the "
                 f"graph, {sum(ledger.replays)} replays; the profiler saw "
                 f"{seen})")
         per_epoch = {f"{label}_per_graphed_epoch": n,
@@ -2326,6 +2354,457 @@ def check_small_zoo(dev):
     _log("small_zoo", max_abs_err=json.dumps(errs), ok=True)
 
 
+# ---------------------------------------------------------------------------
+# GPS: the run_gps twin, the bench-shaped steps with K1 in their backward,
+# the other configs and every attention / local model / encoder
+# ---------------------------------------------------------------------------
+
+GPS_CFG = "configs/gps/zinc-GPS.yaml"
+# the configs `[run_gps_variants]` runs (each at its own widths) and the
+# graphs each keeps: about 4 train batches per epoch
+GPS_VARIANTS = {
+    "zinc-GPS-bigbird": 160, "zinc-GPS-graphormer": 160,
+    "zinc-GPS-linear": 160, "zinc-GPS-san": 160, "counting-GPS": 160,
+    "qm9-GPS": 160, "molhiv-GPS": 80, "aqsol-GPS": 160,
+    "pcqm4mv2-GPS": 3200, "ppa-GPS": 80, "contact-GPS": 160,
+    "ogbl-GPS": 200,
+}
+
+
+def _bench_chain_graphs(num, seed, nodes, chords, span, x_vocab, y_width,
+                        h):
+    """The bench's chain-shaped graphs (a copy of `bench.py`'s
+    generators): per graph n in `nodes` nodes, a path and `chords(n)`
+    chords of a span in `span`, both directions, x in [0, x_vocab), bond
+    types 1-3, `y_width` normal targets; featurized with ESC h `h` and the
+    SPD bias."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.container import GraphData
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.featurize.spd import attach_attn_bias
+
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(num):
+        n = int(rng.integers(*nodes))
+        a = np.arange(n - 1)
+        extra = chords(n)
+        c1 = rng.integers(0, n, extra)
+        c2 = (c1 + rng.integers(*span, extra)) % n
+        src = np.concatenate([a, c1])
+        dst = np.concatenate([a + 1, c2])
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        ei = np.stack([np.concatenate([src, dst]),
+                       np.concatenate([dst, src])]).astype(np.int32)
+        graphs.append(GraphData(
+            num_nodes=n, edge_index=ei,
+            x=rng.integers(0, x_vocab, n).astype(np.int32)[:, None],
+            edge_attr=rng.integers(1, 4, ei.shape[1]).astype(np.int32),
+            y=rng.normal(size=(y_width,)).astype(np.float32)))
+    return [attach_attn_bias(g) for g in
+            featurize_many(graphs, EscConfig(h=h, use_rd=True,
+                                             self_loop=True))]
+
+
+def bench_zinc_graphs(num: int = 32, seed: int = 0):
+    """The GPS ZINC bench shape (`bench.py:503-515`, molecules of
+    `bench.py` `_raw_zinc_graphs`): 18-30 atoms, n // 6 chords, 28 atom
+    types, ESC h 3."""
+    return _bench_chain_graphs(num, seed, (18, 30), lambda n: max(2, n // 6),
+                               (2, 5), 28, 1, 3)
+
+
+def bench_pep_graphs(num: int = 16, seed: int = 0):
+    """The GPS peptides bench shape (`bench.py:656-670`, graphs of
+    `bench.py` `make_pep_graphs`): 120-160 nodes, n // 4 chords, 11
+    targets, ESC h 2."""
+    return _bench_chain_graphs(num, seed, (120, 160), lambda n: n // 4,
+                               (2, 9), 20, 11, 2)
+
+
+def gps_bench_config(shape: str):
+    """The bench's GPS models: ZINC 64 x 4 add-pooled to 1 output,
+    peptides 96 x 10 mean-pooled to 11; 4 heads, ESC and the SPD bias."""
+    from escgnn_tpu_torch.models.gps import GPSConfig
+
+    if shape == "zinc":
+        return GPSConfig(dim_h=64, num_layers=4, num_heads=4, use_esc=True,
+                         use_attn_bias=True, pool="add", out_dim=1)
+    return GPSConfig(dim_h=96, num_layers=10, num_heads=4, use_esc=True,
+                     use_attn_bias=True, pool="mean", out_dim=11)
+
+
+def check_k1_gps(batch, H: int, dev, label: str):
+    """K1 at a GPS shape: the contiguous (E, H) gradient of one layer's z
+    expansion over the batch's sorted view, against the f64 sum (rtol
+    1e-5, atol 1e-4) and bit-equal from run to run; one launch per call
+    (the kernel nodes of one call captured into a graph: the profiler
+    drops device records); its CUDA-graph-timed ms beside the plain
+    version's, `index_add_`'s on
+    the unsorted edge -> row map, and the bound."""
+    from escgnn_tpu_torch.ops import expand_cuda, smem_plan
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    perm, rows = batch.enc_edge_perm, batch.enc_row_sorted
+    E, R = perm.shape[0], batch.enc_idx.shape[0]
+    dZ = torch.randn(E, H, device=dev, generator=gen)
+    got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
+    want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
+        0, rows.long(), dZ.double().index_select(0, perm.long()))
+    err = _check_close(f"K1 {label}", got, want.float(), rtol=1e-5,
+                       atol=1e-4)
+    if not torch.equal(got, expand_cuda.sorted_segment_sum(dZ, perm, rows,
+                                                           R)):
+        raise AssertionError(f"K1 {label}: not deterministic")
+    per_call, k1_nodes = _captured_kernels(
+        lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows, R),
+        "segsum_kernel")
+    if per_call != 1 or k1_nodes != 1:
+        raise AssertionError(f"K1 {label}: one call captured {per_call} "
+                             f"kernel nodes, {k1_nodes} of them K1")
+    ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows, R))
+    plain_ms = _cuda_ms(
+        lambda: expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R))
+    edge_row = batch.enc_edge_row.long()
+    library_ms = _cuda_ms(
+        lambda: torch.zeros(R, H, device=dev).index_add_(0, edge_row, dZ))
+    bound_ms, bound_by = _bound(E * H * 4 + 2 * E * 4 + R * H * 4, E * H)
+    plan = expand_cuda.segsum_plan(E, H, smem_plan.sm_count(dev))
+    fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    _log(f"k1_{label}", shapes=f"E={E},R={R},H={H}", span=plan.span,
+         grid=plan.grid, launches_per_call=per_call, **fields, ok=True)
+    return fields
+
+
+def run_gps_bench(shape: str, dev, reps: int):
+    """`[gps_bench]` / `[gps_pep]`: the bench's GPS train step on the
+    uniform + dedup layout, graphed (`[pool_graph]` over `reps` copies of
+    the bench batch, each a step) against eager, K1 `num_layers` times
+    per step in both; K1 against its plain version at the step's
+    (E, dim_h). Returns (K1's launches in the graphed epoch, K1's
+    numbers at this shape)."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.models.gps import GPSModel
+    from escgnn_tpu_torch.ops import expand_cuda
+    from escgnn_tpu_torch.train.loop import (
+        adam_with_plateau,
+        l1_graph_loss,
+        train_step,
+    )
+
+    label = "gps_bench" if shape == "zinc" else "gps_pep"
+    t0 = time.perf_counter()
+    graphs = bench_zinc_graphs() if shape == "zinc" else bench_pep_graphs()
+    data_s = time.perf_counter() - t0
+    spec = BatchSpec.uniform(graphs, len(graphs), enc_layout="dedup")
+    batch = pad_and_batch(graphs, spec, device=dev)
+    cfg = gps_bench_config(shape)
+    k1 = check_k1_gps(batch, cfg.dim_h, dev, label)
+    model = GPSModel(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    # eager launches of K1: one per layer per step
+    expand_cuda.launches = 0
+    train_step(copy.deepcopy(model),
+               adam_with_plateau(model.parameters(), LR), batch,
+               l1_graph_loss)
+    torch.cuda.synchronize()
+    eager = expand_cuda.launches
+    if eager != cfg.num_layers:
+        raise AssertionError(f"{label}: K1 ran {eager} times in an eager "
+                             f"step of {cfg.num_layers} layers")
+    report = {}
+    graphed = check_pool_graph(label, model, l1_graph_loss, graphs * reps,
+                               spec, LR, dev, report=report,
+                               per_step=cfg.num_layers)
+    _log(label, graphs=len(graphs), N=batch.num_nodes, E=batch.num_edges,
+         R=spec.num_enc_rows, M=spec.max_nodes_per_graph,
+         spd_ids_per_layer=len(graphs) * spec.max_nodes_per_graph ** 2,
+         dim_h=cfg.dim_h, layers=cfg.num_layers, data_s=round(data_s, 3),
+         k1_eager_launches_per_step=eager,
+         k1_graphed_launches=graphed, steps=reps,
+         graphed_ms_per_step=report["graphed_ms_per_step"],
+         busy_ms_per_step=report["graphed_busy_ms_per_step"],
+         idle_share=report["graphed_idle_share"],
+         device_events_per_step=report["device_events_per_graphed_step"],
+         peak_mem_gb=report["graphed_peak_mem_gb"], ok=True)
+    return graphed, k1
+
+
+def _gps_args(work: str, cfg: str, *extra):
+    return ["--cfg", cfg, "out_dir", os.path.join(work, "gps_runs"),
+            "dataset.dir", os.path.join(work, "data"), *extra]
+
+
+def run_gps_twin(work: str, smi: str, dev):
+    """`[run_gps]`: `run_gps.main` on configs/gps/zinc-GPS.yaml at its
+    widths (64 x 4, 4 heads, batch 32, ESC h 3 rd, SPD bias, 512 graphs)
+    for 3 graphed epochs; its `[pool_graph]` (no port kernel on the width
+    layout), graphed = eager on the first step at rel 1e-5, and the
+    spread two eager epochs show from a 1e-7 weight perturbation
+    (`perturbed_rel`: the training carries rounding differences that
+    far); `--eval_only` on the best checkpoint reproduces the best val
+    MAE at rel 1e-5; `--dump_attn` writes 4 (G, 4, M, M) tensors."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_gps
+    from escgnn_tpu_torch.config import load_cfg
+    from escgnn_tpu_torch.data.batching import BatchSpec
+
+    t0 = time.perf_counter()
+    res = run_gps.main(_gps_args(work, GPS_CFG, "train.epochs", "3"))
+    seconds = time.perf_counter() - t0
+    run = res["runs"][0]
+    eps = run["epochs"]
+    losses = [e["loss"] for e in eps]
+    vals = [e["val"] for e in eps]
+    if not all(math.isfinite(v) for v in losses + vals):
+        raise AssertionError(f"run_gps: non-finite {losses} {vals}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"run_gps: loss did not fall: {losses}")
+    ckpt = os.path.join(res["out_dir"], "ckpt_s0")
+    npz = os.path.join(work, "attn.npz")
+    ev = run_gps.main(_gps_args(work, GPS_CFG, "--eval_only", ckpt,
+                                "--dump_attn", npz))
+    if not math.isclose(ev["val_mae"], run["best_val_mae"], rel_tol=1e-5):
+        raise AssertionError(f"run_gps --eval_only val MAE {ev['val_mae']} "
+                             f"!= the best epoch's {run['best_val_mae']}")
+    cfg = load_cfg(GPS_CFG, ["dataset.dir", os.path.join(work, "data")])
+    splits, _, _ = run_gps.build_dataset(cfg, 0)
+    spec = BatchSpec.from_graphs([g for s in splits.values() for g in s],
+                                 cfg.train.batch_size)
+    want = (cfg.train.batch_size, cfg.model.num_heads,
+            spec.max_nodes_per_graph, spec.max_nodes_per_graph)
+    attn = np.load(npz)
+    shapes = {k: attn[k].shape for k in attn.files}
+    if sorted(shapes) != [f"layer{i}/self_attn" for i in range(4)] or any(
+            v != want for v in shapes.values()):
+        raise AssertionError(f"run_gps --dump_attn wrote {shapes}, want 4 "
+                             f"{want}")
+    rows = attn["layer0/self_attn"].sum(-1)
+    if not np.allclose(rows, 1.0, atol=1e-5):
+        raise AssertionError("run_gps: dumped attention rows do not sum to 1")
+    # the first step is held to eager; later steps carry the atomics'
+    # rounding through Adam (see `perturbed_rel`)
+    make = lambda: run_gps.build_model(cfg, splits, 0, dev)  # noqa: E731
+    loss_fn = run_gps._loss_fn(cfg)
+    check_pool_graph("run_gps", make(), loss_fn, splits["train"], spec,
+                     cfg.optim.base_lr, dev, kernel=None,
+                     rel_tol=(1e-5, math.inf))
+    spread = _perturbed_spread(make, loss_fn, splits["train"], spec,
+                               cfg.optim.base_lr, dev)
+    _log("run_gps", config=GPS_CFG, seconds=round(seconds, 3),
+         steps_per_epoch=eps[0]["steps"],
+         epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]),
+         losses=json.dumps(losses),
+         val_mae=json.dumps(vals), best_val_mae=run["best_val_mae"],
+         eval_only_val_mae=ev["val_mae"], perturbed_rel=json.dumps(spread),
+         attn_shapes=json.dumps(
+             {k: list(v) for k, v in shapes.items()}), card=json.dumps(smi),
+         ok=True)
+
+
+def run_gps_variants(work: str, smi: str):
+    """`[run_gps_variants]`: two graphed epochs of each other runnable
+    config at its own widths, `dataset.num_graphs` cut to
+    `GPS_VARIANTS`: finite losses that fall, a finite metric (the link
+    configs' MRR)."""
+    from escgnn_tpu_torch import run_gps
+
+    out = {}
+    for name, num_graphs in GPS_VARIANTS.items():
+        t0 = time.perf_counter()
+        res = run_gps.main(_gps_args(
+            work, f"configs/gps/{name}.yaml", "train.epochs", "2",
+            "dataset.num_graphs", str(num_graphs)))
+        run = res["runs"][0]
+        losses = [e["loss"] for e in run["epochs"]]
+        metric = {k: v for k, v in run.items() if k.startswith("best_val")}
+        if not all(math.isfinite(v) for v in losses + list(metric.values())):
+            raise AssertionError(f"run_gps {name}: non-finite {losses} "
+                                 f"{metric}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"run_gps {name}: loss did not fall: "
+                                 f"{losses}")
+        out[name] = dict(seconds=round(time.perf_counter() - t0, 3),
+                         losses=losses, **metric)
+    _log("run_gps_variants", configs=len(out), runs=json.dumps(out),
+         card=json.dumps(smi), ok=True)
+
+
+def gps_small_cases():
+    """(label, GPSConfig fields, host batch, loss, model kwargs) for every
+    global and local model and every encoder at width 16 x 2 layers, 2
+    heads, on small batches with the SPD bias, LapPE (k 4), RWSE (k 4)
+    and degree extras."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.contact import synthetic_contact
+    from escgnn_tpu_torch.data.counting import (
+        CountingDatasetConfig,
+        generate_counting_graphs,
+    )
+    from escgnn_tpu_torch.data.molecules import (
+        synthetic_ogb_mol,
+        synthetic_ppa,
+        synthetic_zinc,
+    )
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.featurize.posenc import (
+        attach_degree,
+        attach_lap_pe,
+        attach_rwse,
+    )
+    from escgnn_tpu_torch.featurize.spd import attach_attn_bias
+    from escgnn_tpu_torch.train.loop import (
+        bce_graph_loss,
+        ce_graph_loss,
+        l1_graph_loss,
+        l1_node_loss,
+    )
+    from escgnn_tpu_torch.train.metrics import link_pair_loss
+
+    def prep(graphs, layout="width"):
+        gs = [attach_degree(attach_rwse(attach_lap_pe(attach_attn_bias(g),
+                                                      k=4), k=4))
+              for g in featurize_many(graphs, EscConfig(h=2))]
+        spec = (BatchSpec.uniform(gs, len(gs), enc_layout="dedup")
+                if layout == "dedup" else BatchSpec.from_graphs(gs, len(gs)))
+        return pad_and_batch(gs, spec, device="cpu"), gs
+
+    zinc, _ = prep(synthetic_zinc(6, seed=3))
+    zinc_dedup, _ = prep(synthetic_zinc(6, seed=3), "dedup")
+    ogb, _ = prep(synthetic_ogb_mol(6, seed=4, num_tasks=2))
+    ppa_graphs = synthetic_ppa(6, seed=5)
+    ppa, _ = prep(ppa_graphs)
+    counting = generate_counting_graphs(CountingDatasetConfig(
+        num_graphs=10, seed=6))["train"][:6]
+    # the counting graphs' x is all ones: with the constant edge row every
+    # node starts equal and a BatchNorm normalizes a zero-variance column,
+    # whose rounding the two devices take apart (3% on the card); the
+    # linear encoder reads seeded features instead
+    feats = np.random.default_rng(6)
+    for g in counting:
+        g.y = np.asarray(g.y, np.float32)[:, :1]
+        g.x = feats.normal(size=g.x.shape).astype(np.float32)
+    cnt, cg = prep(counting)
+    ast_graphs = synthetic_zinc(6, seed=7)
+    for g in ast_graphs:
+        g.x = np.concatenate([g.x, np.arange(g.num_nodes)[:, None] % 25],
+                             axis=1).astype(np.int32)
+    ast, _ = prep(ast_graphs)
+    link, _ = prep(synthetic_contact(4, seed=8))
+    ppa_dim = np.asarray(ppa_graphs[0].edge_attr).shape[1]
+    return [
+        ("transformer_bias", dict(use_attn_bias=True), zinc, l1_graph_loss,
+         {}),
+        ("transformer_bias_dedup", dict(use_attn_bias=True), zinc_dedup,
+         l1_graph_loss, {}),
+        ("transformer_mean_pool", dict(use_attn_bias=False, pool="mean"),
+         zinc, l1_graph_loss, {}),
+        ("bigbird_pna", dict(global_model="bigbird", local_model="pna",
+                             avg_deg_log=1.3), zinc_dedup, l1_graph_loss,
+         {}),
+        ("graphormer_degree", dict(global_model="graphormer",
+                                   use_degree=True), zinc, l1_graph_loss, {}),
+        ("gatedgcn_linear_lappe_rwse", dict(
+            local_model="gatedgcn", global_model="linear", use_lap_pe=True,
+            use_rwse=True), zinc, l1_graph_loss, {}),
+        ("gatedgcn_san_equivstable", dict(
+            local_model="gatedgcn", global_model="san",
+            use_equivstable_pe=True), zinc_dedup, l1_graph_loss, {}),
+        ("san2_signnet", dict(global_model="san2", use_signnet=True), zinc,
+         l1_graph_loss, {}),
+        ("performer", dict(global_model="performer"), zinc, l1_graph_loss,
+         {}),
+        ("ogb_atom_bond", dict(node_encoder_kind="ogb_atom",
+                               edge_encoder_kind="ogb_bond", out_dim=2),
+         ogb, bce_graph_loss, {}),
+        ("ppa_uniform_linear", dict(node_encoder_kind="ppa_uniform",
+                                    edge_encoder_kind="linear", out_dim=37,
+                                    pool="mean"), ppa, ce_graph_loss,
+         dict(edge_dim=ppa_dim)),
+        ("linear_none_node_level", dict(node_encoder_kind="linear",
+                                        edge_encoder_kind="none",
+                                        graph_pred=False), cnt, l1_node_loss,
+         dict(node_dim=np.asarray(cg[0].x).shape[1])),
+        ("ast", dict(node_encoder_kind="ast"), ast, l1_graph_loss, {}),
+        ("link_head", dict(node_encoder_kind="ogb_atom",
+                           edge_encoder_kind="ogb_bond",
+                           head="inductive_edge"), link, link_pair_loss, {}),
+    ]
+
+
+def check_small_gps(dev):
+    """`[small_gps]`: every case of `gps_small_cases` on the card against
+    the CPU, the same weights drawn from one seed: eval outputs on the
+    running statistics and the train-mode loss at rtol/atol 1e-5 of their
+    largest entry; eval outputs on the batch statistics and every
+    gradient at rtol 1e-4, atol 1e-4 of their largest entry, as
+    `[small_zoo]` holds them (the BatchNorms' batch statistics sum in
+    other orders on the two devices). The ppa_uniform case's gradients
+    are not compared (its outputs and loss are): every node starts from
+    one learned row, so the first layer's attention branch is constant
+    within a graph and its BatchNorm divides a rounding residue by
+    sqrt(1e-5), which the two devices round apart (on the card: entries
+    of `node_const`'s and the z MLP's gradients 0.17% and 6.4% apart;
+    the CPU tests hold these gradients to JAX's)."""
+    from escgnn_tpu_torch.models.gps import GPSConfig, GPSModel
+    from escgnn_tpu_torch.models.layers import bn_statistics
+
+    def run(cfg, kw, host, loss_fn, device):
+        m = GPSModel(cfg, lap_k=4, rwse_k=4, device=device,
+                     generator=torch.Generator().manual_seed(3), **kw)
+        b = host.to(device)
+        out = {}
+        m.eval()
+        with torch.no_grad():
+            for running in (True, False):
+                with bn_statistics(m, use_running_average=running):
+                    out[f"eval_running_{running}"] = m(b).cpu()
+        m.train()
+        loss = loss_fn(m(b), b)
+        loss.backward()
+        out["loss"] = loss.detach().cpu()
+        out.update({f"grad {k}": p.grad.cpu()
+                    for k, p in m.named_parameters() if p.grad is not None})
+        return out
+
+    errs = {}
+    for label, fields, host, loss_fn, kw in gps_small_cases():
+        cfg = GPSConfig(dim_h=16, num_layers=2, num_heads=2, **fields)
+        cpu = run(cfg, kw, host, loss_fn, "cpu")
+        gpu = run(cfg, kw, host, loss_fn, dev)
+        if set(cpu) != set(gpu):
+            raise AssertionError(f"small_gps {label}: gradients differ in "
+                                 f"which parameters they reach")
+        gmax = max(v.abs().max().item() for k, v in cpu.items()
+                   if k.startswith("grad"))
+        err = 0.0
+        for k, want in cpu.items():
+            scale = max(want.abs().max().item(), 1e-6)
+            if k.startswith("grad"):
+                if label.startswith("ppa"):
+                    if not torch.isfinite(gpu[k]).all():
+                        raise AssertionError(f"small_gps {label} {k}: not "
+                                             f"finite")
+                    continue
+                tol = dict(rtol=1e-4, atol=1e-4 * gmax)
+            elif k == "eval_running_False":
+                tol = dict(rtol=1e-4, atol=1e-4 * scale)
+            else:
+                tol = dict(rtol=1e-5, atol=1e-5 * scale)
+            err = max(err, _check_close(f"small_gps {label} {k}", gpu[k],
+                                        want, **tol))
+        errs[label] = err
+    _log("small_gps", cases=len(errs), max_abs_err=json.dumps(errs), ok=True)
+
+
 def run_sr_twin(smi: str, dev):
     """`[run_sr]`: the SR25 check at its defaults (untrained, 8 layers x
     64, seed 0, the real graphs from data/sr25) through main(); then the
@@ -2699,12 +3178,21 @@ def main() -> int:
         run_zinc_gnn_twins(work, smi, dev)
     check_zoo_registry(dev)
     check_small_zoo(dev)
+    # 12. GPS: the run_gps twin, the bench-shaped steps (K1 once per layer
+    # per step), the other configs and every attention and encoder
+    with tempfile.TemporaryDirectory() as work:
+        run_gps_twin(work, smi, dev)
+        k1_paths["gps_bench"], k1_gps = run_gps_bench("zinc", dev, reps=10)
+        k1_paths["gps_pep"], k1_pep = run_gps_bench("pep", dev, reps=4)
+        run_gps_variants(work, smi)
+    check_small_gps(dev)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",
              source="escgnn_tpu_torch/csrc/expand_segsum.cu",
              replaces="escgnn_tpu/ops/expand_pallas.py:53",
-             launches=main_launches["k1"], paths=k1_paths, **k1),
+             launches=main_launches["k1"], paths=k1_paths,
+             shapes={"gps_bench": k1_gps, "gps_pep": k1_pep}, **k1),
         dict(name="zemb_countmat", route="cuda",
              source="escgnn_tpu_torch/csrc/zemb_countmat.cu",
              replaces="escgnn_tpu/ops/zemb_pallas.py:114",

@@ -14,10 +14,12 @@ uniform per-copy blocks of `data/uniform_copies.py`), `batch_iterator`,
 the subgraph-copy levels of the copy family (`node_segment`,
 `node_segment2`, `center_idx`, `node_original` and their masks), the
 dense `orig_adj`, the k-set levels of the k-GNN family (`kset{k}_*` and
-`assign_2to3_*` extras), and the generic node-, edge- and copy-aligned
-graph extras. The flat layout, packed batches and the attention-bias and
-link-pair extras (8.3) wait for the slices that need them and raise,
-naming their ROADMAP queue.
+`assign_2to3_*` extras), GPS's dense SPD matrix `attn_bias` (stacked into
+(G, M, M), M = `max_nodes_per_graph`) and labeled link pairs
+(`pair_index` / `pair_label` / `pair_graph` / `pair_mask` under the
+`num_pairs` budget), and the generic node-, edge- and copy-aligned graph
+extras. The flat layout and packed batches wait for the slices that need
+them and raise, naming their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -38,11 +40,8 @@ _STRUCTURAL_KEYS = frozenset({
     "center_idx", "node_to_original_node", "num_original_nodes",
     "orig_adj", "node_valid", "edge_valid",
     "assign_2to3", "num_assign_2to3",
+    "attn_bias", "pair_index", "pair_label",
 })
-# the structural extras not ported yet: the ROADMAP queue that brings each
-_UNPORTED_KEYS = {
-    "attn_bias": "8.3", "pair_index": "8.3", "pair_label": "8.3",
-}
 
 # wire dtypes: the ESC bucket ids (< 1800) and counts (small ints) ship as
 # int16; ops cast on device
@@ -98,6 +97,8 @@ class BatchSpec:
     # multiples, so block index == copy segment id batch-wide
     copy_nodes: int = 0
     copy_edges: int = 0
+    # labeled link-prediction pairs (the inductive-edge task)
+    num_pairs: int = 0
 
     @classmethod
     def from_graphs(
@@ -205,7 +206,9 @@ def _graph_stats(g: GraphData) -> dict:
          "segments": int(ex.get("num_subgraphs", 0)),
          "segments2": int(ex.get("num_subgraphs2", 0)),
          "original": int(ex.get("num_original_nodes", 0)),
-         "a23": int(ex.get("num_assign_2to3", 0))}
+         "a23": int(ex.get("num_assign_2to3", 0)),
+         "pairs": (int(np.asarray(ex["pair_index"]).shape[1])
+                   if "pair_index" in ex else 0)}
     if g.enc_offsets is not None:
         nnz = np.diff(np.asarray(g.enc_offsets))
         s["enc_w"] = int(nnz.max()) if nnz.size else 0
@@ -301,6 +304,7 @@ def _budgets_from(m: dict, scale: int, enc_layout: str) -> dict:
                        ("original", "num_original")):
         kw[key] = _round_up(scale * m[level], 8) if m[level] else 0
     kw["num_assign_2to3"] = _round_up(scale * m["a23"], 16) if m["a23"] else 0
+    kw["num_pairs"] = _round_up(scale * m["pairs"], 16) if m["pairs"] else 0
     for k in (2, 3):
         sets = m.get(f"kset{k}", 0)
         kw[f"num_kset{k}"] = _round_up(scale * sets, 8) if sets else 0
@@ -458,12 +462,41 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
         fields.update(_batch_segments2(graphs, n_sizes, node_off, spec))
     if "node_to_original_node" in ex0 and spec.num_original > 0:
         fields.update(_batch_original(graphs, n_sizes, node_off, spec))
+    if "pair_index" in ex0 and spec.num_pairs > 0:
+        for k, v in _batch_pairs(graphs, node_off, spec).items():
+            fields[EXTRAS_PREFIX + k] = v
     for k, v in _batch_ksets(graphs, node_off, spec).items():
         fields[EXTRAS_PREFIX + k] = v
     for k, v in _batch_named_extras(graphs, n_sizes, e_sizes, perms,
                                     node_off, edge_off, spec).items():
         fields[EXTRAS_PREFIX + k] = v
     return fields
+
+
+def _batch_pairs(graphs, node_off, spec: BatchSpec) -> dict:
+    """Labeled link-prediction pairs, concatenated in graph order and
+    offset to batch node ids. Padding pairs park on the padding node slot
+    (N - 1) with label 0 in the last graph; `pair_mask` drops them from
+    the loss."""
+    p_sizes = [int(np.asarray(g.extras["pair_index"]).shape[1])
+               for g in graphs]
+    P = spec.num_pairs
+    if sum(p_sizes) > P:
+        raise ValueError(f"{sum(p_sizes)} pairs exceed the {P}-pair budget")
+    N, NG = spec.num_nodes, spec.num_graphs
+    pair_index = np.full((2, P), N - 1, np.int32)
+    pair_label = np.zeros(P, np.float32)
+    pair_graph = np.full(P, NG - 1, np.int32)
+    pair_mask = np.zeros(P, bool)
+    p_off = np.concatenate([[0], np.cumsum(p_sizes)])
+    for i, g in enumerate(graphs):
+        ps, pe = p_off[i], p_off[i + 1]
+        pair_index[:, ps:pe] = np.asarray(g.extras["pair_index"]) + node_off[i]
+        pair_label[ps:pe] = np.asarray(g.extras["pair_label"], np.float32)
+        pair_graph[ps:pe] = i
+        pair_mask[ps:pe] = True
+    return dict(pair_index=pair_index, pair_label=pair_label,
+                pair_graph=pair_graph, pair_mask=pair_mask)
 
 
 def _batch_segments(graphs, n_sizes, node_off, spec: BatchSpec) -> dict:
@@ -655,28 +688,24 @@ def _batch_named_extras(graphs, n_sizes, e_sizes, perms, node_off, edge_off,
     """Generic extras: node-aligned ones padded like x, edge-aligned ones
     permuted like edge_attr, copy-aligned ones (one row per subgraph
     copy, e.g. the node-level targets of the copy models) padded to the
-    segment budget, and `orig_adj` stacked into (G, K, K); per-graph
-    scalars (`num_*`) and the copy-level keys that have their own fields
-    are skipped, as the JAX batcher does, and so are the k-set extras
-    (`_batch_ksets` lays them out). The attention-bias and pair extras
-    raise, naming their ROADMAP queue."""
+    segment budget, `orig_adj` stacked into (G, K, K) and `attn_bias`
+    into (G, M, M) with M = `max_nodes_per_graph`; per-graph scalars
+    (`num_*`) and the keys that have their own fields (copy levels, link
+    pairs) are skipped, as the JAX batcher does, and so are the k-set
+    extras (`_batch_ksets` lays them out)."""
     out: dict = {}
     ex0 = graphs[0].extras or {}
-    for key in ex0:
-        queue = _UNPORTED_KEYS.get(key)
-        if queue:
-            raise NotImplementedError(
-                f"extras[{key!r}]: its batch fields are ROADMAP queue {queue}")
     seg_sizes = [int(_ex(g, "num_subgraphs", 0)) for g in graphs]
     seg_off = np.concatenate([[0], np.cumsum(seg_sizes)])
     for key, v0 in ex0.items():
-        if key == "orig_adj":
-            K = spec.max_segments_per_graph
-            adj = np.zeros((spec.num_graphs, K, K), np.asarray(v0).dtype)
+        if key in ("orig_adj", "attn_bias"):
+            K = (spec.max_segments_per_graph if key == "orig_adj"
+                 else spec.max_nodes_per_graph)
+            dense = np.zeros((spec.num_graphs, K, K), np.asarray(v0).dtype)
             for i, g in enumerate(graphs):
                 a = np.asarray(g.extras[key])
-                adj[i, :a.shape[0], :a.shape[1]] = a
-            out[key] = adj
+                dense[i, :a.shape[0], :a.shape[1]] = a
+            out[key] = dense
             continue
         if (key in _STRUCTURAL_KEYS or key.startswith("num_")
                 or key.startswith("kset")):

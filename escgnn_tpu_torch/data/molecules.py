@@ -1,5 +1,5 @@
-"""ZINC and OGB graphs (counterpart of `escgnn_tpu/data/molecules.py`
-without AQSOL and PCQM4Mv2).
+"""ZINC, AQSOL, OGB and PCQM4Mv2 graphs (counterpart of
+`escgnn_tpu/data/molecules.py`).
 
 The reference's ZINC artifact is read when it is present
 (`load_zinc_pickle`); otherwise `synthetic_zinc` makes deterministic
@@ -10,7 +10,8 @@ function of the graph (so models can learn it).
 The OGB datasets: an extracted raw directory is read without the `ogb`
 package (`load_ogb_graph_dir`); otherwise `synthetic_ogb_mol` (ogbg-mol*
 shapes) and `synthetic_ppa` (ogbg-ppa shapes) make deterministic
-stand-ins. Every generator's output is bit-equal to the JAX package's for
+stand-ins; `synthetic_aqsol` and `synthetic_pcqm4mv2` make the GPS
+zoo's AQSOL and PCQM4Mv2 rows. Every generator's output is bit-equal to the JAX package's for
 the same seed.
 """
 
@@ -195,6 +196,55 @@ def synthetic_ogb_mol(
     return out
 
 
+def synthetic_aqsol(num_graphs: int = 2000, seed: int = 0) -> list[GraphData]:
+    """AQSOL-shaped graphs (reference GraphGPS
+    `loader/dataset/aqsol_molecules.py`): ZINC-style int atom/bond types
+    (65 atom, 5 bond classes) with a structural pseudo-solubility target
+    — the aqueous-solubility regression row of the GPS zoo."""
+    rng = np.random.default_rng(seed + 7)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(10, 30))
+        ei = _molecule_skeleton(rng, n)
+        x = rng.integers(0, 65, n).astype(np.int32)[:, None]
+        ea = rng.integers(0, 5, ei.shape[1]).astype(np.int32)
+        tri = _num_triangles(n, ei)
+        deg = np.bincount(ei[1], minlength=n)
+        y = (
+            -0.08 * n
+            + 0.3 * tri
+            - 0.15 * float((x[:, 0] % 7).mean())
+            + 0.25 * float(deg.mean())
+        )
+        out.append(GraphData(
+            num_nodes=n, edge_index=ei, x=x,
+            edge_attr=ea.astype(np.int32),
+            y=np.asarray([y], np.float32),
+        ))
+    return out
+
+
+def aqsol_splits(
+    data_dir: str, num_graphs: int = 2000, seed: int = 0
+) -> tuple[dict, bool]:
+    """Real AQSOL splits when `<data_dir>/aqsol/<split>.pickle` artifacts
+    exist (the reference's per-split pickles); otherwise a deterministic
+    80/10/10 split of `synthetic_aqsol`. Returns (splits, is_real)."""
+    import os
+
+    names = {s: os.path.join(data_dir, "aqsol", f"{s}.pickle")
+             for s in ("train", "val", "test")}
+    if all(os.path.exists(p) for p in names.values()):
+        return {s: load_zinc_pickle(p) for s, p in names.items()}, True
+    raw = synthetic_aqsol(num_graphs=num_graphs, seed=seed)
+    n_tr, n_val = int(0.8 * len(raw)), int(0.1 * len(raw))
+    return {
+        "train": raw[:n_tr],
+        "val": raw[n_tr:n_tr + n_val],
+        "test": raw[n_tr + n_val:],
+    }, False
+
+
 def synthetic_ppa(num_graphs: int = 2000, seed: int = 0,
                   num_classes: int = 37) -> list[GraphData]:
     """ogbg-ppa-shaped graphs: no node features (x = zeros), 7-dim float
@@ -294,6 +344,69 @@ def load_ogb_graph_dir(root: str) -> dict:
             idx = [int(line.strip()) for line in f if line.strip()]
         out[key] = [graphs[i] for i in idx]
     return out
+
+
+def synthetic_pcqm4mv2(
+    num_graphs: int = 2000, seed: int = 0
+) -> list[GraphData]:
+    """PCQM4Mv2-shaped graphs (OGB-LSC HOMO-LUMO gap regression,
+    reference `master_loader.py:441-525`): OGB atom/bond int features,
+    scalar float y. The synthetic target is a smooth structural
+    function (triangle count + size + mean degree), so a working
+    regression pipeline must drive MAE well below the label std."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(12, 28))
+        ei = _molecule_skeleton(rng, n)
+        x = np.stack(
+            [rng.integers(0, min(d, 16), n) for d in _ATOM_DIMS], axis=1
+        ).astype(np.int32)
+        ea = np.stack(
+            [rng.integers(0, d, ei.shape[1]) for d in _BOND_DIMS], axis=1
+        ).astype(np.int32)
+        tri = _num_triangles(n, ei)
+        y = np.asarray(
+            [0.15 * tri + 0.05 * n + 0.2 * ei.shape[1] / n], np.float32
+        )
+        out.append(GraphData(
+            num_nodes=n, edge_index=ei, x=x, edge_attr=ea, y=y,
+        ))
+    return out
+
+
+def pcqm4mv2_splits(
+    data_dir: str,
+    subset: str = "subset",
+    num_graphs: int = 2000,
+    seed: int = 0,
+) -> tuple[dict, bool]:
+    """PCQM4Mv2 splits (reference `preformat_OGB_PCQM4Mv2`,
+    master_loader.py:441-525). Real-if-present: an extracted
+    `<data_dir>/pcqm4mv2/raw` graph dir in the OGB csv layout loads via
+    `load_ogb_graph_dir`; otherwise `synthetic_pcqm4mv2`.
+
+    `subset`: 'subset' trains on 10% of the train split (the
+    reference's debugging subset), 'full' on all of it; 'inference'
+    mirrors the LSC challenge layout — labeled original-valid as
+    "train", unlabeled (NaN-y) test-dev / test-challenge as val/test."""
+    import os
+
+    assert subset in ("subset", "full", "inference"), subset
+    for cand in (os.path.join(data_dir, "pcqm4mv2"),):
+        if os.path.isdir(os.path.join(cand, "raw")):
+            return load_ogb_graph_dir(cand), True
+    raw = synthetic_pcqm4mv2(num_graphs=num_graphs, seed=seed)
+    n_tr, n_val = int(0.8 * len(raw)), int(0.1 * len(raw))
+    train, val, test = (
+        raw[:n_tr], raw[n_tr:n_tr + n_val], raw[n_tr + n_val:]
+    )
+    if subset == "subset":
+        train = train[: max(1, len(train) // 10)]
+    elif subset == "inference":
+        for g in val + test:
+            g.y = np.full_like(g.y, np.nan)
+    return {"train": train, "val": val, "test": test}, False
 
 
 def ogb_mol_splits(

@@ -1,5 +1,4 @@
-"""Vectorized all-pairs h-hop BFS (copy of `escgnn_tpu/featurize/bfs.py`,
-without the sampled variant).
+"""Vectorized all-pairs h-hop BFS (copy of `escgnn_tpu/featurize/bfs.py`).
 
 Every edge's labels only need hop distances *from each node*, so the full
 capped distance matrix is computed once per graph with boolean frontier
@@ -42,4 +41,57 @@ def hop_distance_matrix(
             break
         D[frontier] = k
         reach |= frontier
+    return D
+
+
+def _sample_frontier(cand_nodes: np.ndarray, cap: int, seed: int,
+                     root: int, hop: int) -> np.ndarray:
+    """Canonical deterministic frontier subsample: permutation of the
+    ASCENDING candidate list under a rng derived from (seed, root, hop),
+    first `cap` kept. Both the vectorized matrix BFS and the per-edge
+    oracle call exactly this, so their sampled ego-nets are bit-equal
+    (the reference re-samples per edge with a global rng,
+    `utils_edge_efficient.py:238-240`; deriving the stream per (root,
+    hop) determinizes that choice — one consistent subgraph per root)."""
+    rng = np.random.default_rng([seed, root, hop])
+    keep = rng.permutation(cand_nodes.shape[0])[:cap]
+    return cand_nodes[keep]
+
+
+def sampled_hop_distance_matrix(
+    num_nodes: int,
+    edge_index: np.ndarray,
+    num_hops: int,
+    max_nodes_per_hop: int,
+    seed: int,
+) -> np.ndarray:
+    """`hop_distance_matrix` with the reference's per-hop frontier
+    subsampling (`max_nodes_per_hop`): when a root's hop-k frontier
+    exceeds the cap, a deterministic subsample survives; non-sampled
+    nodes stay undiscovered and may re-enter at a later hop through a
+    surviving frontier node (exactly the reference's visited-set
+    semantics). D[r, w] = discovery hop of w in root r's SAMPLED BFS,
+    num_hops + 1 if never discovered."""
+    n = num_nodes
+    cap_d = num_hops + 1
+    B = np.zeros((n, n), dtype=bool)
+    if edge_index.size:
+        B[edge_index[1], edge_index[0]] = True
+    D = np.full((n, n), cap_d, dtype=np.int16)
+    np.fill_diagonal(D, 0)
+    reach = np.eye(n, dtype=bool)
+    frontier = np.eye(n, dtype=bool)
+    for k in range(1, num_hops + 1):
+        cand = (frontier @ B) & ~reach
+        counts = cand.sum(axis=1)
+        for r in np.flatnonzero(counts > max_nodes_per_hop):
+            nodes = np.flatnonzero(cand[r])  # ascending — canonical order
+            keep = _sample_frontier(nodes, max_nodes_per_hop, seed, int(r), k)
+            cand[r] = False
+            cand[r, keep] = True
+        if not cand.any():
+            break
+        D[cand] = k
+        reach |= cand
+        frontier = cand
     return D

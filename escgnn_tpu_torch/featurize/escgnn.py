@@ -1,7 +1,7 @@
 """The ESC per-edge structural encoder — fast vectorized path.
 
-Host numpy code, a copy of `escgnn_tpu/featurize/escgnn.py` without the
-per-hop frontier subsampling option (`max_nodes_per_hop`), so that the
+Host numpy code, a copy of `escgnn_tpu/featurize/escgnn.py` (with its
+per-hop frontier subsampling option, `max_nodes_per_hop`), so that the
 PyTorch package imports nothing of the JAX package.
 
 Semantics contract: reference `utils_edge_efficient.py:20-151` (see
@@ -33,9 +33,14 @@ Reference parity quirks that are deliberately preserved:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 
-from escgnn_tpu_torch.featurize.bfs import hop_distance_matrix
+from escgnn_tpu_torch.featurize.bfs import (
+    hop_distance_matrix,
+    sampled_hop_distance_matrix,
+)
 from escgnn_tpu_torch.featurize.layout import EncodingLayout
 
 
@@ -44,6 +49,7 @@ class EscConfig:
     h: int = 3
     use_rd: bool = True
     self_loop: bool = True
+    max_nodes_per_hop: Optional[int] = None
 
     @property
     def layout(self) -> EncodingLayout:
@@ -57,6 +63,8 @@ class EscConfig:
             key += "_rd"
         if self.self_loop:
             key += "_sl"
+        if self.max_nodes_per_hop is not None:
+            key += f"_mnph{self.max_nodes_per_hop}"
         return key
 
 
@@ -123,9 +131,15 @@ def _batched_pinv(
 
 
 def esc_encode(
-    num_nodes: int, edge_index: np.ndarray, cfg: EscConfig
+    num_nodes: int, edge_index: np.ndarray, cfg: EscConfig,
+    sample_seed: int = 0,
 ) -> EscEncoding:
-    """Encode one graph into per-edge structural count rows."""
+    """Encode one graph into per-edge structural count rows.
+
+    `sample_seed` only matters with `cfg.max_nodes_per_hop`: the per-hop
+    frontier subsample is drawn from a rng derived per (seed, root, hop)
+    (see `bfs.sampled_hop_distance_matrix`), so the encoding is a
+    deterministic function of (graph, cfg, sample_seed)."""
     lay = cfg.layout
     n = int(num_nodes)
     h = cfg.h
@@ -144,7 +158,12 @@ def esc_encode(
 
     # BFS over the canonical (self-looped) edge list; self-loops do not
     # change distances but keep the traversal identical to the reference.
-    D = hop_distance_matrix(n, edges, h)  # (N, N)
+    if cfg.max_nodes_per_hop is not None:
+        D = sampled_hop_distance_matrix(
+            n, edges, h, cfg.max_nodes_per_hop, sample_seed
+        )
+    else:
+        D = hop_distance_matrix(n, edges, h)  # (N, N)
 
     # Adjacency with multiplicities for in-subgraph degree (out-degree of
     # the stored directed edges, self-loops included).

@@ -24,12 +24,23 @@ def esc_transform(
     cfg: EscConfig,
     self_loop_fill=1,
 ) -> GraphData:
-    # native C++ core first (bit-equal, OpenMP across edges); it returns
-    # None when it declines (build unavailable, non-default layout, or a
-    # failed Laplacian residual check) and the numpy encoder takes over
-    enc = esc_encode_native(g.num_nodes, g.edge_index, cfg)
-    if enc is None:
-        enc = esc_encode(g.num_nodes, g.edge_index, cfg)
+    if cfg.max_nodes_per_hop is not None:
+        # per-hop frontier subsampling runs on the numpy encoder (the
+        # native core has no sampler), its rng derived per (seed, root,
+        # hop) from this per-graph seed: the JAX package's rule
+        seed = int(
+            (np.asarray(g.edge_index, np.uint64).sum()
+             + np.uint64(g.num_nodes)) & np.uint64(0x7FFFFFFF)
+        )
+        enc = esc_encode(g.num_nodes, g.edge_index, cfg, sample_seed=seed)
+    else:
+        # native C++ core first (bit-equal, OpenMP across edges); it
+        # returns None when it declines (build unavailable, non-default
+        # layout, or a failed Laplacian residual check) and the numpy
+        # encoder takes over
+        enc = esc_encode_native(g.num_nodes, g.edge_index, cfg)
+        if enc is None:
+            enc = esc_encode(g.num_nodes, g.edge_index, cfg)
     edge_attr = g.edge_attr
     if edge_attr is not None and cfg.self_loop:
         # Original non-self-loop edges keep their attrs (in order); the

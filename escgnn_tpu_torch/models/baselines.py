@@ -236,29 +236,41 @@ class PNAConv(nn.Module):
     [x_i ‖ x_j], the mean / min / max / std aggregators times the
     identity, amplification and attenuation degree scalers, a post-MLP
     on [x ‖ scaled aggregates], and a Linear over the towers.
-    `avg_deg_log` is E[log(d + 1)] over the training graphs."""
+    `avg_deg_log` is E[log(d + 1)] over the training graphs. With
+    `edge_dim`, a Linear `lin_edge` maps the edge features to one tower's
+    width and the pre-MLP reads [x_i ‖ x_j ‖ e_ji] (GPS's local PNA)."""
 
     def __init__(self, in_features: int, features: int, towers: int = 1,
-                 avg_deg_log: float = 1.0, *, generator: torch.Generator):
+                 avg_deg_log: float = 1.0, edge_dim: Optional[int] = None,
+                 *, generator: torch.Generator):
         super().__init__()
         if in_features % towers or features % towers:
             raise ValueError("towers must divide the widths")
         g = generator
         self.towers, self.avg_deg_log = towers, avg_deg_log
         f_in, f_out = in_features // towers, features // towers
-        self.w_pre = _lecun_param((towers, 2 * f_in, f_in), 2 * f_in, g)
+        self.lin_edge = (TorchDense(edge_dim, f_in, generator=g)
+                         if edge_dim is not None else None)
+        parts = 2 if edge_dim is None else 3
+        self.w_pre = _lecun_param((towers, parts * f_in, f_in), parts * f_in,
+                                  g)
         self.b_pre = nn.Parameter(torch.zeros(towers, f_in))
         self.w_post = _lecun_param((towers, 13 * f_in, f_out), 13 * f_in, g)
         self.b_post = nn.Parameter(torch.zeros(towers, f_out))
         self.lin_out = TorchDense(features, features, generator=g)
 
-    def forward(self, x, senders, receivers, edge_mask):
+    def forward(self, x, senders, receivers, edge_mask, edge_attr=None):
         n = x.shape[0]
         T = self.towers
         xt = x.reshape(n, T, -1)
         r = receivers.long()
-        m = torch.cat([xt.index_select(0, r),
-                       xt.index_select(0, senders.long())], dim=-1)
+        src = xt.index_select(0, senders.long())
+        parts = [xt.index_select(0, r), src]
+        if edge_attr is not None and self.lin_edge is not None:
+            e = self.lin_edge(edge_attr.to(torch.float32).reshape(
+                edge_attr.shape[0], -1))
+            parts.append(e[:, None, :].expand_as(src))
+        m = torch.cat(parts, dim=-1)
         m = F.relu(torch.einsum("eti,tio->eto", m, self.w_pre) + self.b_pre)
         mean = segment_mean(m, r, n, mask=edge_mask)
         mx = segment_max(m, r, n, mask=edge_mask)

@@ -95,6 +95,8 @@ def esc_encode_native(num_nodes: int, edge_index, cfg):
     lib = _load()
     if lib is None:
         return None
+    if cfg.max_nodes_per_hop is not None:
+        return None  # the per-hop frontier sampler is the numpy encoder's
     if cfg.h > 4:
         # base-6 edge-type packing only fits 1300 buckets for labels
         # <= 5 (h + 1); larger h must use the numpy encoder's layout

@@ -60,16 +60,23 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 
 class ClippedAdam(torch.optim.Adam):
     """torch.optim.Adam (b1 0.9, b2 0.999, eps 1e-8: optax.adam's update)
-    whose step first clips the gradients by their global norm
-    (`grad_clip` > 0), as the JAX package's optax chain does."""
+    whose step first zeroes the gradients of the `frozen` parameters (the
+    JAX package's `optax.masked(set_to_zero)` ahead of Adam: a frozen
+    parameter's update is exactly 0) and then clips the gradients by
+    their global norm (`grad_clip` > 0), as the JAX package's optax chain
+    does."""
 
     def __init__(self, params, lr, grad_clip: float = 0.0,
-                 capturable: bool = False):
+                 capturable: bool = False, frozen=()):
         super().__init__(params, lr=lr, capturable=capturable)
         self.grad_clip = float(grad_clip)
+        self.frozen = list(frozen)
 
     @torch.no_grad()
     def step(self, closure=None):
+        for p in self.frozen:
+            if p.grad is not None:
+                p.grad.zero_()
         if self.grad_clip > 0:
             clip_by_global_norm_(
                 [p.grad for g in self.param_groups for p in g["params"]
@@ -78,18 +85,19 @@ class ClippedAdam(torch.optim.Adam):
 
 
 def adam_with_plateau(params, lr: float, grad_clip: float = 0.0,
-                      capturable: bool = False) -> ClippedAdam:
+                      capturable: bool = False, frozen=()) -> ClippedAdam:
     """Adam whose learning rate the plateau scheduler sets through
     `set_learning_rate`; `grad_clip` > 0 clips by global norm first.
     `capturable=True` (for `make_pool_train_step` on a CUDA device) keeps
     the optimizer's step count and learning rate in device tensors, so
-    the update can be captured into a CUDA graph."""
+    the update can be captured into a CUDA graph. `frozen` parameters get
+    zero gradients, hence zero updates."""
     params = list(params)
     if capturable:
         lr = torch.tensor(float(lr), dtype=torch.float32,
                           device=params[0].device)
     return ClippedAdam(params, lr, grad_clip=grad_clip,
-                       capturable=capturable)
+                       capturable=capturable, frozen=frozen)
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:

@@ -6,7 +6,9 @@ computed on the host in numpy, written out from their definitions (the
 JAX package calls sklearn, which the machines that run the port need
 not have), with the OGB task filters: a task whose labeled entries hold
 one class only is skipped, and with no task left the metric is NaN.
-`link_pair_loss` and the MRR helpers come with GPS (ROADMAP 8.3).
+The GPS link task: `link_pair_loss` (dot-decoded BCE over the batch's
+labeled pairs, on the device) and the host-side ranking metrics
+`eval_mrr` / `graph_link_mrr`, numpy copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -95,3 +97,70 @@ def average_precision(y_true: np.ndarray, y_score: np.ndarray) -> float:
             continue
         aps.append(_binary_ap(yt, y_score[m, t]))
     return float(np.mean(aps)) if aps else float("nan")
+
+
+def link_pair_loss(node_emb: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Dot-decoded link-prediction BCE over labeled pairs.
+
+    `node_emb` is the (N, D) output of the inductive-edge head
+    (models/gps.py head="inductive_edge"); pairs, labels and masks come
+    from the batcher's pair arrays. Padding pairs park on the padding
+    node slot and drop out through `pair_mask`."""
+    ex = batch.extras
+    pi = ex["pair_index"].long()
+    v1 = node_emb.index_select(0, pi[0])
+    v2 = node_emb.index_select(0, pi[1])
+    logits = (v1 * v2).sum(-1)
+    mask = ex["pair_mask"]
+    per = optax_sigmoid_bce(logits, ex["pair_label"].to(torch.float32))
+    return (torch.where(mask, per, torch.zeros_like(per)).sum()
+            / mask.sum().clamp_min(1))
+
+
+def eval_mrr(y_pred_pos: np.ndarray, y_pred_neg: np.ndarray) -> dict:
+    """Hits@{1,3,10} + MRR of positives ranked against their negatives.
+
+    Mirrors the reference's `_eval_mrr`
+    (GraphGPS/graphgps/head/inductive_edge.py:115-139, itself the OGB
+    linkproppred evaluator): the positive score is prepended to its
+    negative row, rows are argsorted descending, and the positive's
+    rank (1-based) yields hits@k / reciprocal rank. Stable argsort, so
+    score ties resolve in favor of the positive — same optimistic tie
+    rule as torch.argsort on the reference's path.
+
+    y_pred_pos: (B,); y_pred_neg: (B, num_neg). Returns per-edge
+    arrays under 'hits@k_list' / 'mrr_list' keys like the reference."""
+    y_pred = np.concatenate(
+        [y_pred_pos.reshape(-1, 1), y_pred_neg], axis=1
+    )
+    argsort = np.argsort(-y_pred, axis=1, kind="stable")
+    ranking = np.nonzero(argsort == 0)[1] + 1
+    return {
+        "hits@1_list": (ranking <= 1).astype(np.float64),
+        "hits@3_list": (ranking <= 3).astype(np.float64),
+        "hits@10_list": (ranking <= 10).astype(np.float64),
+        "mrr_list": 1.0 / ranking.astype(np.float64),
+    }
+
+
+def graph_link_mrr(scores: np.ndarray, pair_index: np.ndarray,
+                   pair_label: np.ndarray, num_nodes: int) -> dict:
+    """One graph's MRR/hits from a dense (M, M) score matrix.
+
+    Mirrors `compute_mrr` (inductive_edge.py:62-113): for every
+    positive (i, j), the candidate set is j's score among ALL nodes of
+    the graph except the true tail itself (self-loops included, other
+    positives of i included — exactly the reference's neg_mask).
+    Returns {} when the graph has no positive pairs (the reference
+    emits empty stats)."""
+    pos = pair_index[:, pair_label == 1]
+    n_pos = pos.shape[1]
+    if n_pos == 0:
+        return {}
+    pred = scores[:num_nodes, :num_nodes]
+    pred_pos = pred[pos[0], pos[1]]
+    neg_mask = np.ones((n_pos, num_nodes), bool)
+    neg_mask[np.arange(n_pos), pos[1]] = False
+    pred_neg = pred[pos[0]][neg_mask].reshape(n_pos, -1)
+    out = eval_mrr(pred_pos, pred_neg)
+    return {k[: -len("_list")]: float(v.mean()) for k, v in out.items()}

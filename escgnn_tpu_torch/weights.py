@@ -1,6 +1,6 @@
 """Carry a flax model state (NestedGINEff, PPGN, OgbGNN, NGNN, I2GNN,
-NestedPPGN, BaselineGNN, RGCNBaseline, IDGNN, GINEPlusNetwork, KGNN)
-into the PyTorch model.
+NestedPPGN, BaselineGNN, RGCNBaseline, IDGNN, GINEPlusNetwork, KGNN,
+GPSModel) into the PyTorch model.
 
 The flax `params` and `batch_stats` trees arrive as nested dicts of numpy
 arrays (the caller converts; this module imports no JAX). Names map
@@ -17,15 +17,22 @@ one to one, with these rules:
   * leaf names: `kernel` -> `weight` (a Dense kernel transposed: flax
     keeps (in, out), nn.Linear (out, in); a 1-D conv kernel permuted from
     flax's (width, in, out) to nn.Conv1d's (out, in, width)), `scale` and
-    `embedding` -> `weight`, batch statistics `mean`/`var` ->
-    `running_mean`/`running_var`;
+    `embedding` -> `weight` (BatchNorm, flax `LayerNorm` and embedding
+    tables alike, GPS's `spd_bias/embedding` too), batch statistics
+    `mean`/`var` -> `running_mean`/`running_var`;
   * everything else keeps its name and its flax layout (`z_initial`,
     `eps`, `bias`, the LSTM gates `ii` ... `ho`, RGCN's `w_rel` (R, F, F'),
     GAT's `att_src` / `att_dst` / `att`, PNA's `w_pre` / `b_pre` /
-    `w_post` / `b_post`, GINE+'s `v0`, ...): only a leaf named `kernel`
-    is transposed.
-The load is strict: every flax leaf must land on a model tensor of the
-same shape and every model tensor must be filled, or it raises.
+    `w_post` / `b_post`, GINE+'s `v0`, GPS's `fake_edge_emb`,
+    `node_const`, `edge_const`, SAN2's 0-d `gamma`, ...): only a leaf
+    named `kernel` is transposed. GPS's local GINE MLP is flax's
+    `layer<i>/MLP_0`, and the port keeps it under that name in the layer.
+A model tensor that flax computes as a constant outside `params` (GPS's
+FAVOR+ projection, `layer<i>.self_attn.favor_proj`) is given by its
+torch name in `constants`.
+The load is strict: every flax leaf and constant must land on a model
+tensor of the same shape and every model tensor must be filled, or it
+raises.
 """
 
 from __future__ import annotations
@@ -78,10 +85,15 @@ def flax_to_state_dict(params: dict, batch_stats: dict,
 
 
 def load_flax_variables(model: torch.nn.Module, params: dict,
-                        batch_stats: dict) -> None:
-    """Fill `model` in place from flax `params` / `batch_stats`."""
+                        batch_stats: dict, constants: dict = None) -> None:
+    """Fill `model` in place from flax `params` / `batch_stats` and the
+    model `constants` ({torch state_dict key: array})."""
     src = flax_to_state_dict(params, batch_stats,
                              getattr(model, "flax_mlps_per_conv", 1))
+    for key, value in (constants or {}).items():
+        if key in src:
+            raise ValueError(f"constant {key!r} is also a flax leaf")
+        src[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
     dst = model.state_dict()
     missing = sorted(set(dst) - set(src))
     unused = sorted(set(src) - set(dst))

@@ -5,6 +5,7 @@ Import checks run in a fresh interpreter (this test process has JAX
 loaded by tests/conftest.py).
 """
 
+import math
 import os
 import shutil
 import subprocess
@@ -139,3 +140,40 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("nvcc is installed at its default path")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+def test_gps_slice_is_walked_and_needs_no_yaml_or_sklearn():
+    """The GPS slice's modules are reached by the import walk, and no
+    module of the port (nor chip_smoke.py) imports PyYAML or sklearn,
+    which the card's machine does not have."""
+    r = _run([sys.executable, "-c", _IMPORT_ALL + (
+        "print(' '.join(names)); print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('yaml', 'sklearn')))")], cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    names = lines[1].split()
+    for mod in ("run_gps", "config", "models.gps", "data.contact",
+                "featurize.spd", "featurize.posenc"):
+        assert f"escgnn_tpu_torch.{mod}" in names, mod
+    assert lines[2] == "[]"
+
+
+def test_run_gps_defaults_to_cuda_and_raises_without_it(no_card, tmp_path):
+    """`run_gps.main` (and its model) take the card by default and raise
+    without one, before any data is built; `--device cpu` runs."""
+    from escgnn_tpu_torch import run_gps
+    from escgnn_tpu_torch.models.gps import GPSConfig, GPSModel
+
+    cfg = os.path.join(REPO, "configs", "gps", "zinc-GPS.yaml")
+    opts = ["out_dir", str(tmp_path / "runs"), "dataset.dir",
+            str(tmp_path / "data")]
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_gps.main(["--cfg", cfg, *opts])
+    assert os.listdir(tmp_path) == []
+    with pytest.raises(RuntimeError, match="cuda"):
+        GPSModel(GPSConfig(dim_h=8, num_layers=1, num_heads=2))
+    res = run_gps.main(["--cfg", cfg, *opts, "dataset.num_graphs", "20",
+                        "model.dim_h", "8", "model.num_layers", "1",
+                        "model.num_heads", "2", "train.batch_size", "8",
+                        "train.epochs", "1", "--device", "cpu"])
+    assert math.isfinite(res["runs"][0]["best_val_mae"])

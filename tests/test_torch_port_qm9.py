@@ -168,7 +168,9 @@ def test_edge_aligned_extras_and_refused_keys():
     """Edge-aligned extras ride the receiver sort like edge_attr (equal
     to JAX); a copy-level key without its copy budget is skipped, as the
     JAX batcher skips it, and so is a k-set key without its k-set
-    budget; the pair extras raise with their queue."""
+    budget; the labeled link pairs come out as the JAX batcher's
+    (offset pair ids, labels, owning graph, mask, the padding parked on
+    the last node slot)."""
     from escgnn_tpu.data.container import GraphData as JGraphData
 
     tg, jg = _edge_graphs(GraphData), _edge_graphs(JGraphData)
@@ -192,8 +194,18 @@ def test_edge_aligned_extras_and_refused_keys():
     want = _jax_arrays(j_pad_and_batch(kset_j,
                                        JBatchSpec.from_graphs(kset_j, 2)))
     assert set(got) == set(want) and not any("kset" in k for k in got)
-    with pytest.raises(NotImplementedError, match="queue 8.3"):
-        batch_arrays(_edge_graphs(GraphData, "pair_index"), spec)
+    pair_t, pair_j = _edge_graphs(GraphData), _edge_graphs(JGraphData)
+    for gt, gj in zip(pair_t, pair_j):
+        pi = np.stack([np.arange(3), np.arange(3)[::-1] + 1]).astype(np.int32)
+        lab = np.asarray([1, 0, 1], np.float32)
+        gt.extras.update(pair_index=pi, pair_label=lab)
+        gj.extras.update(pair_index=pi.copy(), pair_label=lab.copy())
+    got = batch_arrays(pair_t, BatchSpec.from_graphs(pair_t, 2))
+    want = _jax_arrays(j_pad_and_batch(pair_j,
+                                       JBatchSpec.from_graphs(pair_j, 2)))
+    assert set(got) == set(want) and "extras.pair_mask" in got
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _jax_mse(out, batch):

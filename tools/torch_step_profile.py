@@ -5,6 +5,8 @@
     python3 tools/torch_step_profile.py --model ppgn --impl pallas --pool pallas
     python3 tools/torch_step_profile.py --model i2gnn [--layout bucketed]
     python3 tools/torch_step_profile.py --model k123    # or gineplus
+    python3 tools/torch_step_profile.py --model gps [--spd_embed sort]
+    python3 tools/torch_step_profile.py --model gps_pep
 
 Builds the batch and model of the flagship (NestedGINEff) or of the
 PPGN_eff counting path exactly as chip_smoke.py does, or the first train
@@ -13,7 +15,9 @@ batch of the `run_zinc --model I2GNN|NGNN` main path at the JAX defaults
 copy blocks), or the first train batch of `run_qm9 --model k123_GNN`
 (1000 synthetic molecules, h 3, batch 64) or of `run_ogb_mol --model
 GINEPlus` (640 synthetic molecules, 300 x 6, k 3, dropout 0.65, batch
-32, uniform blocks), at the twins' defaults, takes
+32, uniform blocks), at the twins' defaults, or the bench's GPS steps
+(`--model gps`: 32 ZINC-shaped molecules, 64 x 4; `--model gps_pep`: 16
+peptide-shaped graphs, 96 x 10; uniform + dedup, the SPD bias), takes
 3 warm-up steps, then profiles `--steps` train steps with torch.profiler
 (CPU and CUDA activities). Prints one JSON line: host ms per step (wall
 clock around synchronized steps), device busy ms per step (the union of
@@ -23,7 +27,10 @@ kernels, the kernels with the most device time and, for the flagship, the
 copies of an (E, hidden) f32 tensor to another: K1 reads its strided
 gradient in place, so the step should make none (ops are recorded with
 their shapes to find them), and the longest idle gaps on the device
-timeline with the kernels on either side.
+timeline with the kernels on either side. The GPS models also report
+the device time of the SPD bias's backward (`spd_bias_backward_ms`: the
+one-hot product, or with `--spd_embed sort` `F.embedding`'s sorting
+backward) and of K1 (`segsum_kernel`, once per layer).
 """
 
 from __future__ import annotations
@@ -50,12 +57,61 @@ def _union_ms(intervals) -> float:
     return total / 1e3  # profiler times are in microseconds
 
 
+def _label_spd_backward(gps, kind: str) -> str:
+    """Wrap the SPD bias's backward in a profiler label (the one-hot
+    product, or with `kind="sort"` the lookup switched to `F.embedding`,
+    whose backward sorts the ids); returns the label."""
+    import torch.nn.functional as F
+
+    label = "spd_bias_backward"
+    if kind == "sort":
+        class _Sorted(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, table, ids):
+                with torch.enable_grad():
+                    t = table.detach().requires_grad_()
+                    out = F.embedding(ids, t)
+                ctx.saved = (t, out)
+                return out.detach()
+
+            @staticmethod
+            def backward(ctx, dy):
+                t, out = ctx.saved
+                with torch.profiler.record_function(label):
+                    return torch.autograd.grad(out, t, dy)[0], None
+
+        gps._OneHotEmbed = _Sorted
+        return label
+    inner = gps._OneHotEmbed.backward
+
+    def backward(ctx, dy):
+        with torch.profiler.record_function(label):
+            return inner(ctx, dy)
+
+    gps._OneHotEmbed.backward = staticmethod(backward)
+    return label
+
+
+def _labelled_device_ms(prof, label: str) -> float:
+    """Device ms of the kernels launched inside the host ranges `label`."""
+    total = 0.0
+    for e in prof.events():
+        if e.name == label and e.device_type == torch.autograd.DeviceType.CPU:
+            total += (e.device_time_total if hasattr(e, "device_time_total")
+                      else e.cuda_time_total)
+    return total / 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--model", default="flagship",
                     choices=["flagship", "ppgn", "i2gnn", "ngnn", "k123",
-                             "gineplus"])
+                             "gineplus", "gps", "gps_pep"])
+    ap.add_argument("--spd_embed", default="onehot",
+                    choices=["onehot", "sort"],
+                    help="GPS: the SPD bias lookup's backward, the one-hot "
+                    "product or F.embedding's (gps and gps_pep only)")
     ap.add_argument("--layout", default="uniform",
                     choices=["uniform", "bucketed"],
                     help="copy layout (i2gnn and ngnn only)")
@@ -144,6 +200,22 @@ def main() -> int:
         batch = pad_and_batch(graphs[:oargs.batch_size], spec, device=dev)
         model = run_ogb_mol.build_model(oargs, dev)
         loss_fn = bce_graph_loss
+    elif args.model in ("gps", "gps_pep"):
+        from chip_smoke import (
+            bench_pep_graphs,
+            bench_zinc_graphs,
+            gps_bench_config,
+        )
+        from escgnn_tpu_torch.models import gps
+
+        zinc = args.model == "gps"
+        graphs = bench_zinc_graphs() if zinc else bench_pep_graphs()
+        spec = BatchSpec.uniform(graphs, len(graphs), enc_layout="dedup")
+        batch = pad_and_batch(graphs, spec, device=dev)
+        model = gps.GPSModel(gps_bench_config("zinc" if zinc else "pep"),
+                             device=dev, generator=gen)
+        loss_fn = l1_graph_loss
+        spd_backward = _label_spd_backward(gps, args.spd_embed)
     elif args.model == "ppgn":
         batch, spec, _ = counting_batch(dev)
         model = PPGN(ppgn_config(spec.max_nodes_per_graph, args.pool),
@@ -158,6 +230,8 @@ def main() -> int:
             batch = dataclasses.replace(batch, enc_countmat=None)
         model = NestedGINEff(flagship_config(), device=dev, generator=gen)
         loss_fn = l1_graph_loss
+    if args.model not in ("gps", "gps_pep"):
+        spd_backward = None
     zemb.set_impl(args.impl)
     opt = adam_with_plateau(model.parameters(), 5e-4)
     for _ in range(3):
@@ -224,6 +298,10 @@ def main() -> int:
             if any(k in n for k in ("segsum_kernel", "zemb_rows_kernel",
                                     "pool_kernel"))},
         "f32_copies_e_by_hidden": copies,
+        "spd_embed": args.spd_embed if spd_backward else None,
+        "spd_bias_backward_ms_per_step": (
+            _labelled_device_ms(prof, spd_backward) / args.steps
+            if spd_backward else None),
         "idle_gaps_ms_per_step": sum(g[0] for g in gaps) / args.steps,
         "longest_gaps": [{"ms": g, "after": a[:70], "before": b[:70]}
                          for g, a, b in gaps[:8]],
