@@ -61,9 +61,20 @@ against its plain PyTorch version on the card, then drives these paths:
     on the uniform + dedup layout: 32 ZINC-shaped graphs at 64 x 4, 16
     peptide-shaped graphs at 96 x 10; K1 against its plain version at
     their (E, 64) and (E, 96) and once per layer in every step, eager and
-    graphed), `[run_gps_variants]` (the other 12 configs the twin runs,
-    2 epochs each at their own widths) and `[small_gps]` (every global
-    and local model and encoder, card against CPU).
+    graphed), `[run_gps_pep]` (`run_gps.main` on configs/gps/peptides-
+    struct-GPS.yaml at its widths, 64 x 4, batch 16, 3 graphed epochs on
+    600 synthetic peptides; `--eval_only`; its `[pool_graph]`),
+    `[run_gps_variants]` (the other 23 configs, at their own widths and
+    cut to about 4 train batches x 2 epochs, the single-graph node-split
+    ones whole x 8 epochs: macro-F1 and sub-token F1 among the metrics)
+    and `[small_gps]` (every global and local model and encoder, card
+    against CPU);
+  * the TU benchmark twin: `[run_tu]` (`run_tu.main` at its defaults,
+    BaselineGNN gin0 32 x 3, 10-fold CV on the synthetic 200-graph TU
+    set cut to 20 epochs, then `--model IDGNN` and `--nested` with 3
+    folds; a fold's graphed and eager ms/step) and `[run_tu_cycles]` (the
+    `class`, `reg --multi_layer` and `reg_gc` cycle trainers, and `class`
+    on the synthetic Cora). No port kernel lies on these paths.
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -2360,14 +2371,23 @@ def check_small_zoo(dev):
 # ---------------------------------------------------------------------------
 
 GPS_CFG = "configs/gps/zinc-GPS.yaml"
-# the configs `[run_gps_variants]` runs (each at its own widths) and the
-# graphs each keeps: about 4 train batches per epoch
+PEP_CFG = "configs/gps/peptides-struct-GPS.yaml"
+# the configs `[run_gps_variants]` runs (each at its own widths): the
+# graphs each keeps (about 4 train batches per epoch; None: the dataset
+# is not cut) and its epochs. The single-graph node-split configs (batch
+# 1, one step per epoch) run 8 epochs, as many steps as the others' 2;
+# imdb's synthetic TU set has 200 graphs whatever num_graphs says
 GPS_VARIANTS = {
-    "zinc-GPS-bigbird": 160, "zinc-GPS-graphormer": 160,
-    "zinc-GPS-linear": 160, "zinc-GPS-san": 160, "counting-GPS": 160,
-    "qm9-GPS": 160, "molhiv-GPS": 80, "aqsol-GPS": 160,
-    "pcqm4mv2-GPS": 3200, "ppa-GPS": 80, "contact-GPS": 160,
-    "ogbl-GPS": 200,
+    "zinc-GPS-bigbird": (160, 2), "zinc-GPS-graphormer": (160, 2),
+    "zinc-GPS-linear": (160, 2), "zinc-GPS-san": (160, 2),
+    "counting-GPS": (160, 2), "qm9-GPS": (160, 2), "molhiv-GPS": (80, 2),
+    "aqsol-GPS": (160, 2), "pcqm4mv2-GPS": (3200, 2), "ppa-GPS": (80, 2),
+    "contact-GPS": (160, 2), "ogbl-GPS": (200, 2),
+    "peptides-func-GPS": (80, 2), "peptides-struct-GPS": (80, 2),
+    "mnist-GPS": (160, 2), "malnet-GPS": (80, 2), "imdb-GPS": (None, 2),
+    "voc-GPS": (80, 2), "pattern-GPS": (80, 2), "code2-GPS": (80, 2),
+    "cora-GPS": (None, 8), "actor-GPS": (None, 8),
+    "chameleon-GPS": (None, 8),
 }
 
 
@@ -2609,18 +2629,20 @@ def run_gps_twin(work: str, smi: str, dev):
 
 
 def run_gps_variants(work: str, smi: str):
-    """`[run_gps_variants]`: two graphed epochs of each other runnable
-    config at its own widths, `dataset.num_graphs` cut to
-    `GPS_VARIANTS`: finite losses that fall, a finite metric (the link
-    configs' MRR)."""
+    """`[run_gps_variants]`: graphed epochs of each of the other 23
+    configs at its own widths, cut as `GPS_VARIANTS` says: finite losses
+    that fall, a finite metric (accuracy, AP, AUC, MAE, MRR, and the
+    node-classification macro-F1 and code2's sub-token F1)."""
     from escgnn_tpu_torch import run_gps
 
     out = {}
-    for name, num_graphs in GPS_VARIANTS.items():
+    for name, (num_graphs, epochs) in GPS_VARIANTS.items():
         t0 = time.perf_counter()
+        cut = [] if num_graphs is None else ["dataset.num_graphs",
+                                             str(num_graphs)]
         res = run_gps.main(_gps_args(
-            work, f"configs/gps/{name}.yaml", "train.epochs", "2",
-            "dataset.num_graphs", str(num_graphs)))
+            work, f"configs/gps/{name}.yaml", "train.epochs", str(epochs),
+            *cut))
         run = res["runs"][0]
         losses = [e["loss"] for e in run["epochs"]]
         metric = {k: v for k, v in run.items() if k.startswith("best_val")}
@@ -2631,9 +2653,166 @@ def run_gps_variants(work: str, smi: str):
             raise AssertionError(f"run_gps {name}: loss did not fall: "
                                  f"{losses}")
         out[name] = dict(seconds=round(time.perf_counter() - t0, 3),
-                         losses=losses, **metric)
+                         steps=run["epochs"][0]["steps"], losses=losses,
+                         **metric)
     _log("run_gps_variants", configs=len(out), runs=json.dumps(out),
          card=json.dumps(smi), ok=True)
+
+
+def run_gps_pep_twin(work: str, smi: str, dev):
+    """`[run_gps_pep]`: `run_gps.main` on configs/gps/peptides-struct-
+    GPS.yaml at its widths (64 x 4, 4 heads, batch 16, ESC h 2 rd, SPD
+    bias, 600 synthetic peptides, 11 standardized targets) for 3 graphed
+    epochs: losses fall, val MAE; `--eval_only` on the best checkpoint
+    reproduces the best val MAE at rel 1e-5; its `[pool_graph]` holds the
+    first graphed step to eager at rel 1e-5 (the GPS twin is chaotic past
+    step 1, see `[run_gps]`) and reads busy ms/step, the idle share,
+    device events per step and the peak memory."""
+    from escgnn_tpu_torch import run_gps
+    from escgnn_tpu_torch.config import load_cfg
+    from escgnn_tpu_torch.data.batching import BatchSpec
+
+    args = ["--cfg", PEP_CFG, "out_dir", os.path.join(work, "gps_pep_runs"),
+            "dataset.dir", os.path.join(work, "data")]
+    t0 = time.perf_counter()
+    res = run_gps.main(args + ["train.epochs", "3"])
+    seconds = time.perf_counter() - t0
+    run = res["runs"][0]
+    eps = run["epochs"]
+    losses = [e["loss"] for e in eps]
+    vals = [e["val"] for e in eps]
+    if not all(math.isfinite(v) for v in losses + vals):
+        raise AssertionError(f"run_gps_pep: non-finite {losses} {vals}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"run_gps_pep: loss did not fall: {losses}")
+    ev = run_gps.main(args + ["--eval_only",
+                              os.path.join(res["out_dir"], "ckpt_s0")])
+    if not math.isclose(ev["val_mae"], run["best_val_mae"], rel_tol=1e-5):
+        raise AssertionError(f"run_gps_pep --eval_only val MAE "
+                             f"{ev['val_mae']} != the best epoch's "
+                             f"{run['best_val_mae']}")
+    cfg = load_cfg(PEP_CFG, ["dataset.dir", os.path.join(work, "data")])
+    splits, _, _ = run_gps.build_dataset(cfg, 0)
+    spec = BatchSpec.from_graphs([g for s in splits.values() for g in s],
+                                 cfg.train.batch_size)
+    report = {}
+    check_pool_graph("run_gps_pep", run_gps.build_model(cfg, splits, 0, dev),
+                     run_gps._loss_fn(cfg), splits["train"], spec,
+                     cfg.optim.base_lr, dev, kernel=None,
+                     rel_tol=(1e-5, math.inf), report=report)
+    _log("run_gps_pep", config=PEP_CFG, seconds=round(seconds, 3),
+         steps_per_epoch=eps[0]["steps"], N=spec.num_nodes,
+         E=spec.num_edges, M=spec.max_nodes_per_graph,
+         epoch_seconds=json.dumps([round(e["seconds"], 4) for e in eps]),
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4) for e in eps]),
+         losses=json.dumps(losses), val_mae=json.dumps(vals),
+         best_val_mae=run["best_val_mae"],
+         best_test_mae=run["best_test_mae"],
+         eval_only_val_mae=ev["val_mae"],
+         busy_ms_per_step=report["graphed_busy_ms_per_step"],
+         idle_share=report["graphed_idle_share"],
+         device_events_per_step=report["device_events_per_graphed_step"],
+         peak_mem_gb=report["graphed_peak_mem_gb"], card=json.dumps(smi),
+         ok=True)
+
+
+# ---------------------------------------------------------------------------
+# the run_tu twin
+# ---------------------------------------------------------------------------
+
+TU_EPOCHS = "20"  # the twin's default is 100
+
+
+def run_tu_twin(work: str, smi: str, dev):
+    """`[run_tu]`: `run_tu.main` at its defaults (BaselineGNN gin0 32 x 3,
+    mean pool, dropout 0.5, batch 128, lr 1e-2, 10 folds) on the synthetic
+    200-graph TU set, cut to 20 epochs; then `--model IDGNN` and
+    `--nested` (h 2 node copies) with 3 folds each. Each fold's val loss
+    falls, its accuracies lie in [0, 1]; prints per-fold seconds and the
+    test accuracy's mean and std. Then the graphed and eager ms/step of
+    fold 0's train split with the default model (`[pool_graph]`; dropout
+    draws differ, so the losses are only held finite)."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_tu
+    from escgnn_tpu_torch.data.batching import BatchSpec
+    from escgnn_tpu_torch.data.tu import get_tu_dataset
+    from escgnn_tpu_torch.train.cv import k_fold
+    from escgnn_tpu_torch.train.loop import ce_graph_loss
+
+    data = os.path.join(work, "TU")
+    runs = {}
+    for label, extra in (("BaselineGNN", []),
+                         ("IDGNN", ["--model", "IDGNN", "--folds", "3"]),
+                         ("nested", ["--nested", "--folds", "3"])):
+        t0 = time.perf_counter()
+        res = run_tu.main(["--data_dir", data, "--epochs", TU_EPOCHS,
+                           "--res_dir", os.path.join(work, f"tu_{label}"),
+                           *extra])
+        val, acc = res["val_losses"], res["test_accs"]
+        if not (np.isfinite(val).all() and ((acc >= 0) & (acc <= 1)).all()):
+            raise AssertionError(f"run_tu {label}: val {val} acc {acc}")
+        if not (val[:, -1] < val[:, 0]).all():
+            raise AssertionError(f"run_tu {label}: a fold's val loss did "
+                                 f"not fall: {val[:, [0, -1]].tolist()}")
+        runs[label] = dict(
+            seconds=round(time.perf_counter() - t0, 3), folds=len(val),
+            fold_seconds=[round(d, 3) for d in res["durations"]],
+            test_acc_mean=res["test_acc_mean"],
+            test_acc_std=res["test_acc_std"], val_loss=res["val_loss"])
+    args = run_tu.build_parser().parse_args(["--data_dir", data])
+    graphs = get_tu_dataset(args.dataset, root=args.data_dir)
+    labels = np.asarray([int(g.y[0]) for g in graphs])
+    train = [graphs[i] for i in k_fold(labels, args.folds)[0][0]]
+    spec = BatchSpec.from_graphs(graphs, args.batch_size)
+    factory = run_tu.cv_model_factory(args, 2, graphs[0].x.shape[1], dev)
+    report = {}
+    check_pool_graph("run_tu", factory(torch.Generator().manual_seed(0)),
+                     ce_graph_loss, train, spec, args.lr, dev, kernel=None,
+                     rel_tol=None, report=report)
+    _log("run_tu", dataset="synthetic TU (200 graphs)",
+         epochs=int(TU_EPOCHS), runs=json.dumps(runs),
+         fold_graphed_ms_per_step=report["graphed_ms_per_step"],
+         fold_eager_ms_per_step=report["eager_ms_per_step"],
+         card=json.dumps(smi), ok=True)
+
+
+def run_tu_cycles(work: str, smi: str):
+    """`[run_tu_cycles]`: the three cycle trainers through `run_tu.main`
+    at their defaults (100 epochs, BaselineGNN gin0 32 x 3 node-level
+    with jumping knowledge, dropout 0.5) on the synthetic TU set: `class`
+    (BCE over a node split of the 200 graphs' union), `reg
+    --multi_layer` and `reg_gc` (batches of 128 rebuilt every epoch), and
+    `class` on `--dataset Cora` (the synthetic 600-node citation graph).
+    The train loss falls and the metric tuple is finite; prints it with
+    `duration_s`."""
+    from escgnn_tpu_torch import run_tu
+
+    out = {}
+    for label, extra in (("class", ["--use_cycle", "class"]),
+                         ("reg_multi_layer", ["--use_cycle", "reg",
+                                              "--multi_layer"]),
+                         ("reg_gc", ["--use_cycle", "reg_gc"]),
+                         ("cora_class", ["--use_cycle", "class",
+                                         "--dataset", "Cora"])):
+        res = run_tu.main(["--data_dir", os.path.join(work, "TU"),
+                           "--res_dir", os.path.join(work, f"cyc_{label}"),
+                           *extra])
+        hist = res["history"]
+        metrics = {k: v for k, v in res.items()
+                   if k.startswith("test_") or k == "best_val"}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"run_tu {label}: {metrics}")
+        if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+            raise AssertionError(f"run_tu {label}: train loss did not "
+                                 f"fall: {hist[0]} {hist[-1]}")
+        out[label] = dict(metrics, epochs=len(hist),
+                          first_loss=hist[0]["train_loss"],
+                          last_loss=hist[-1]["train_loss"],
+                          duration_s=res["duration_s"])
+    _log("run_tu_cycles", runs=json.dumps(out), card=json.dumps(smi),
+         ok=True)
 
 
 def gps_small_cases():
@@ -3184,8 +3363,14 @@ def main() -> int:
         run_gps_twin(work, smi, dev)
         k1_paths["gps_bench"], k1_gps = run_gps_bench("zinc", dev, reps=10)
         k1_paths["gps_pep"], k1_pep = run_gps_bench("pep", dev, reps=4)
+        run_gps_pep_twin(work, smi, dev)
         run_gps_variants(work, smi)
     check_small_gps(dev)
+    # 13. the run_tu twin: k-fold CV and the three cycle trainers (no port
+    # kernel on these paths)
+    with tempfile.TemporaryDirectory() as work:
+        run_tu_twin(work, smi, dev)
+        run_tu_cycles(work, smi)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",

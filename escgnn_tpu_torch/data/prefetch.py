@@ -93,7 +93,9 @@ def _host_batches(graphs, spec: BatchSpec, batch_transform=None) -> list:
                                                 for b in out]
 
 
-def _stack_host(batches: list) -> GraphBatch:
+def stack_batches(batches: list) -> GraphBatch:
+    """Batches of one shape stacked along a new leading pool axis, on
+    their device."""
     first = batches[0]
     return first.with_tensors({
         k: torch.stack([b.tensors()[k] for b in batches])
@@ -143,7 +145,7 @@ def stack_split(graphs: Sequence[GraphData], spec: BatchSpec,
     """Pad a fixed split once and stack its batches along a new leading
     axis on `device`: each eval or refresh pass over it then reads the
     card only. Every transformed batch must have one shape."""
-    return _stack_host(_host_batches(graphs, spec, batch_transform)).to(
+    return stack_batches(_host_batches(graphs, spec, batch_transform)).to(
         device)
 
 
@@ -188,7 +190,7 @@ def stacked_batch_pools(
     kk = max(1, k)
     while len(pools) < kk:
         shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
-        host = _stack_host(_host_batches(shuffled, spec, batch_transform))
+        host = stack_batches(_host_batches(shuffled, spec, batch_transform))
         if not pools:
             per_pool = _nbytes(host)
             fit = max(1, int(max_total_bytes // max(per_pool, 1)))

@@ -26,16 +26,21 @@ into a CUDA graph and replayed. Before each eval the BatchNorm running
 statistics are re-estimated as the exact average over the first 8
 batches of the train split. Regression reports the MAE (times the
 target std), classification the accuracy, multilabel AP or ROC-AUC
-(`metric: auc`), the link task the MRR over all nodes of each graph
-(hits@k beside it).
+(`metric: auc`), node classification the macro-F1 over the nodes with a
+label (y >= 0: the single-graph splits mask the other nodes to -1), the
+sequence task (ogbg-code2) the sub-token F1, and the link task the MRR
+over all nodes of each graph (hits@k beside it).
 
 The datasets: zinc, zinc-synthetic, count_cycle / count_graphlet,
-qm9-synthetic, ogbg-molhiv / ogbg-molpcba, aqsol, ogbg-ppa,
-pcqm4mv2-{subset,full,inference}, pcqm4mv2contact-* and ogbl-*. The
-other names of the JAX zoo, and the node_classification and sequence
-tasks only they use, are ROADMAP queue 9 and raise before any data is
-built. The CPU runs only with `--device cpu`; without a card the default
-raises.
+qm9-synthetic, ogbg-molhiv / ogbg-molpcba, aqsol, ogbg-ppa, ogbg-code2,
+mnist / cifar10, vocsuperpixels / cocosuperpixels, malnet-tiny,
+peptides-func / peptides-struct, pattern / cluster,
+planetoid-{cora,citeseer,pubmed}, webkb-{cornell,texas,wisconsin},
+actor, wikipedia-{chameleon,squirrel}, tu-<NAME>,
+pcqm4mv2-{subset,full,inference}, pcqm4mv2contact-* and ogbl-*: each
+real when its files lie under `dataset.dir`, else its synthetic
+generator. The CPU runs only with `--device cpu`; without a card the
+default raises.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from escgnn_tpu_torch.train.loop import (
     adam_with_plateau,
     bce_graph_loss,
     ce_graph_loss,
+    ce_node_loss,
     eval_step,
     get_learning_rate,
     l1_graph_loss,
@@ -88,6 +94,7 @@ from escgnn_tpu_torch.train.loop import (
     make_pool_logits_step,
     make_pool_refresh_step,
     make_pool_train_step,
+    make_sequence_ce_loss,
     running_statistics,
     set_learning_rate,
 )
@@ -95,30 +102,16 @@ from escgnn_tpu_torch.train.metrics import (
     average_precision,
     graph_link_mrr,
     link_pair_loss,
+    macro_f1,
     rocauc,
 )
 from escgnn_tpu_torch.utils.rundir import backup_run
 
-# the JAX zoo's datasets and tasks that the port does not run yet
-QUEUE9_DATASETS = ("mnist", "cifar10", "vocsuperpixels", "cocosuperpixels",
-                   "peptides-func", "peptides-struct", "malnet-tiny",
-                   "ogbg-code2", "pattern", "cluster", "actor")
-QUEUE9_PREFIXES = ("planetoid-", "webkb-", "wikipedia-", "tu-")
-QUEUE9_TASKS = ("node_classification", "sequence")
 HEAD_KEYS = ("head1", "head2")
-
-
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError, naming ROADMAP queue 9, for a dataset or
-    task the port does not run yet (before any data is built)."""
-    name, task = cfg.dataset.name, cfg.dataset.task
-    if name in QUEUE9_DATASETS or name.startswith(QUEUE9_PREFIXES):
-        raise NotImplementedError(
-            f"dataset.name {name!r}: its loader is ROADMAP queue 9 of the "
-            f"port")
-    if task in QUEUE9_TASKS:
-        raise NotImplementedError(
-            f"dataset.task {task!r}: ROADMAP queue 9 of the port")
+# the tasks whose labels are never standardized and whose metric is
+# higher-is-better
+CLASS_TASKS = ("classification", "multilabel", "node_classification",
+               "sequence", "link")
 
 
 def _even_splits(raw):
@@ -166,10 +159,68 @@ def _raw_splits(cfg, seed: int) -> dict:
         raw, is_real = aqsol_splits(d.dir, num_graphs=d.num_graphs, seed=seed)
         print(f"aqsol: real={is_real}")
         return raw
+    if d.name in ("mnist", "cifar10"):
+        from escgnn_tpu_torch.data.superpixels import superpixel_splits
+
+        raw, is_real = superpixel_splits(d.dir, d.name,
+                                         num_graphs=d.num_graphs, seed=seed)
+        print(f"{d.name}: real={is_real}")
+        return raw
+    if d.name in ("vocsuperpixels", "cocosuperpixels"):
+        from escgnn_tpu_torch.data.superpixels import voc_coco_splits
+
+        raw, is_real = voc_coco_splits(d.dir, d.name,
+                                       num_graphs=d.num_graphs, seed=seed)
+        print(f"{d.name}: real={is_real}")
+        return raw
     if d.name == "ogbg-ppa":
         from escgnn_tpu_torch.data.molecules import ppa_splits
 
         return ppa_splits(d.dir, num_graphs=d.num_graphs, seed=seed)[0]
+    if d.name == "ogbg-code2":
+        from escgnn_tpu_torch.data.code2 import code2_splits
+
+        return code2_splits(d.dir, num_graphs=d.num_graphs, seed=seed)[0]
+    if d.name == "malnet-tiny":
+        from escgnn_tpu_torch.data.malnet import malnet_splits
+
+        raw, is_real = malnet_splits(d.dir, num_graphs=d.num_graphs,
+                                     seed=seed)
+        print(f"malnet-tiny: real={is_real}")
+        return raw
+    if d.name in ("peptides-func", "peptides-struct"):
+        from escgnn_tpu_torch.data.peptides import peptide_splits
+
+        raw, is_real = peptide_splits(d.dir, d.name.split("-")[1],
+                                      num_graphs=d.num_graphs, seed=seed)
+        print(f"{d.name}: real={is_real}")
+        return raw
+    if d.name.startswith("planetoid-"):
+        # one citation graph, three copies with labels -1 outside the split
+        from escgnn_tpu_torch.data.hetero import node_split_copies
+        from escgnn_tpu_torch.data.planetoid import get_planetoid
+
+        name = d.name.split("-", 1)[1].capitalize()
+        if name == "Pubmed":
+            name = "PubMed"
+        g = get_planetoid(name, root=os.path.join(d.dir, "Planetoid"))
+        return node_split_copies(g, seed=seed)
+    if (d.name.startswith(("webkb-", "wikipedia-"))
+            or d.name == "actor"):
+        from escgnn_tpu_torch.data.hetero import (
+            get_hetero_graph,
+            node_split_copies,
+        )
+
+        name = d.name.split("-", 1)[1] if "-" in d.name else d.name
+        g, is_real = get_hetero_graph(name,
+                                      root=os.path.join(d.dir, "hetero"))
+        print(f"{d.name}: real={is_real}")
+        return node_split_copies(g, seed=seed)
+    if d.name in ("pattern", "cluster"):
+        from escgnn_tpu_torch.data.sbm import sbm_splits
+
+        return sbm_splits(d.name, num_graphs=d.num_graphs, seed=seed)
     if d.name.startswith("ogbl-"):
         from escgnn_tpu_torch.data.contact import ogbl_splits
 
@@ -193,6 +244,12 @@ def _raw_splits(cfg, seed: int) -> dict:
                                        num_graphs=d.num_graphs, seed=seed)
         print(f"{d.name}: real={is_real}")
         return raw
+    if d.name.startswith("tu-"):
+        # IMDB-*/COLLAB ship no node labels: degree one-hots stand in
+        from escgnn_tpu_torch.data.tu import get_tu_dataset
+
+        return _even_splits(get_tu_dataset(d.name[3:],
+                                           root=os.path.join(d.dir, "TU")))
     raise ValueError(f"unknown dataset {d.name!r}")
 
 
@@ -200,7 +257,6 @@ def build_dataset(cfg, seed: int):
     """(splits, mean, std): the featurized splits (ESC pre-transform, SPD
     bias, positional encodings, through the feature cache) with their
     targets standardized as the JAX driver does."""
-    check_ported(cfg)
     d, m = cfg.dataset, cfg.model
     ecfg = EscConfig(h=d.esc.h, use_rd=d.esc.use_rd,
                      self_loop=d.esc.self_loop,
@@ -230,7 +286,7 @@ def build_dataset(cfg, seed: int):
         from escgnn_tpu_torch.data.counting import normalize_targets
 
         return normalize_targets(splits, d.target)
-    if d.task in ("classification", "multilabel", "link"):
+    if d.task in CLASS_TASKS:
         return splits, 0.0, 1.0
     if d.name == "qm9-synthetic":
         width = len(splits["train"][0].y)
@@ -325,8 +381,18 @@ def _loss_fn(cfg):
         return ce_graph_loss
     if task == "multilabel":
         return bce_graph_loss
+    if task == "node_classification":
+        return ce_node_loss
     if task == "link":
         return link_pair_loss
+    if task == "sequence":
+        from escgnn_tpu_torch.data.code2 import MAX_SEQ_LEN, NUM_VOCAB
+
+        vocab = NUM_VOCAB + 2  # + EOS + UNK
+        if cfg.model.out_dim != MAX_SEQ_LEN * vocab:
+            raise ValueError(f"sequence task needs model.out_dim = "
+                             f"{MAX_SEQ_LEN * vocab} (L * vocab)")
+        return make_sequence_ce_loss(MAX_SEQ_LEN, vocab)
     return l1_graph_loss if cfg.model.graph_pred else l1_node_loss
 
 
@@ -334,6 +400,7 @@ def _metric_name(cfg) -> str:
     task = cfg.dataset.task
     use_auc = task == "multilabel" and cfg.metric == "auc"
     return {"classification": "acc", "multilabel": "AUC" if use_auc else "AP",
+            "node_classification": "F1", "sequence": "F1",
             "link": "MRR"}.get(task, "MAE")
 
 
@@ -364,12 +431,29 @@ def link_eval(model, stacked, graphs, spec) -> dict:
 
 
 def _class_metric(cfg, logits_pool, stacked) -> float:
+    """The split's classification metric from one logits pass over its
+    stacked batches (node rows under node_classification)."""
     outs, ys, masks = (t.cpu().numpy() for t in logits_pool(stacked))
+    task = cfg.dataset.task
+    if task == "node_classification":
+        # labels < 0 lie outside the split's nodes and drop out
+        m = masks.reshape(-1).astype(bool) & (ys.reshape(-1) >= 0)
+        pred = outs.reshape(-1, outs.shape[-1])[m].argmax(-1)
+        return macro_f1(ys.reshape(-1)[m].astype(np.int64), pred)
     m = masks.reshape(-1).astype(bool)
     out = outs.reshape(-1, outs.shape[-1])[m]
     y = ys.reshape(-1, ys.shape[-1])[m]
-    if cfg.dataset.task == "classification":
+    if task == "classification":
         return float((out.argmax(-1) == y.reshape(-1)).mean())
+    if task == "sequence":
+        from escgnn_tpu_torch.data.code2 import (
+            MAX_SEQ_LEN,
+            NUM_VOCAB,
+            subtoken_f1,
+        )
+
+        pred = out.reshape(-1, MAX_SEQ_LEN, NUM_VOCAB + 2).argmax(-1)
+        return subtoken_f1(pred, y.astype(np.int64))
     use_auc = cfg.metric == "auc"
     v = (rocauc if use_auc else average_precision)(y, out)
     if np.isnan(v):
@@ -439,9 +523,10 @@ def run_one(cfg, seed: int, out_dir: str, device) -> dict:
     task = cfg.dataset.task
     pool_step = make_pool_train_step(model, opt, _loss_fn(cfg), train_stack)
     eval_pool = make_pool_eval_step(model, node_level=not cfg.model.graph_pred)
-    logits_pool = make_pool_logits_step(model)
+    logits_pool = make_pool_logits_step(
+        model, node_level=task == "node_classification")
     refresh_pool = make_pool_refresh_step(model)
-    higher_better = task in ("classification", "multilabel", "link")
+    higher_better = task in CLASS_TASKS
     metric_name = _metric_name(cfg)
     link_stats = {}
 
@@ -527,7 +612,8 @@ def run_eval_only(cfg, ckpt_dir: str, device):
     if step is None:
         raise ValueError(f"{ckpt_dir!r} has no checkpoint")
     task = cfg.dataset.task
-    logits_pool = make_pool_logits_step(model)
+    logits_pool = make_pool_logits_step(
+        model, node_level=task == "node_classification")
 
     def evaluate(graphs):
         if task == "link":
@@ -590,7 +676,6 @@ def main(argv=None) -> dict:
     printed metrics (and `attn`, the dumped weights)."""
     args = build_parser().parse_intermixed_args(argv)
     cfg = load_cfg(args.cfg, args.opts)
-    check_ported(cfg)
     device = resolve_device(args.device)
     # f32 means f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False

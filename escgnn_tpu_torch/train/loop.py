@@ -17,7 +17,8 @@ model in place:
   * `make_accuracy_step` and `make_pergraph_correct_step`: classification
     eval with the running statistics, returning device tensors;
   * `make_pool_logits_step`: the logits of every batch of a stacked pool
-    with the running statistics, for a metric computed on the host;
+    (graph or node rows) with the running statistics, for a metric
+    computed on the host;
   * `refresh_bn_stats` and `make_pool_refresh_step`: the running
     statistics re-estimated as the exact average of per-batch moments.
 
@@ -64,11 +65,14 @@ class ClippedAdam(torch.optim.Adam):
     JAX package's `optax.masked(set_to_zero)` ahead of Adam: a frozen
     parameter's update is exactly 0) and then clips the gradients by
     their global norm (`grad_clip` > 0), as the JAX package's optax chain
-    does."""
+    does. `weight_decay` is Adam's coupled L2 (g + wd * p ahead of the
+    moments: optax.add_decayed_weights ahead of adam), not AdamW's."""
 
     def __init__(self, params, lr, grad_clip: float = 0.0,
-                 capturable: bool = False, frozen=()):
-        super().__init__(params, lr=lr, capturable=capturable)
+                 capturable: bool = False, frozen=(),
+                 weight_decay: float = 0.0):
+        super().__init__(params, lr=lr, capturable=capturable,
+                         weight_decay=weight_decay)
         self.grad_clip = float(grad_clip)
         self.frozen = list(frozen)
 
@@ -85,9 +89,11 @@ class ClippedAdam(torch.optim.Adam):
 
 
 def adam_with_plateau(params, lr: float, grad_clip: float = 0.0,
-                      capturable: bool = False, frozen=()) -> ClippedAdam:
-    """Adam whose learning rate the plateau scheduler sets through
-    `set_learning_rate`; `grad_clip` > 0 clips by global norm first.
+                      capturable: bool = False, frozen=(),
+                      weight_decay: float = 0.0) -> ClippedAdam:
+    """Adam whose learning rate the plateau scheduler (or a step decay)
+    sets through `set_learning_rate`; `grad_clip` > 0 clips by global
+    norm first; `weight_decay` > 0 adds coupled L2.
     `capturable=True` (for `make_pool_train_step` on a CUDA device) keeps
     the optimizer's step count and learning rate in device tensors, so
     the update can be captured into a CUDA graph. `frozen` parameters get
@@ -97,7 +103,8 @@ def adam_with_plateau(params, lr: float, grad_clip: float = 0.0,
         lr = torch.tensor(float(lr), dtype=torch.float32,
                           device=params[0].device)
     return ClippedAdam(params, lr, grad_clip=grad_clip,
-                       capturable=capturable, frozen=frozen)
+                       capturable=capturable, frozen=frozen,
+                       weight_decay=weight_decay)
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
@@ -403,19 +410,21 @@ def make_pergraph_correct_step(model: torch.nn.Module):
     return step
 
 
-def make_pool_logits_step(model: torch.nn.Module):
+def make_pool_logits_step(model: torch.nn.Module, node_level: bool = False):
     """`logits_pool(stacked) -> (logits (B, G, C), y (B, G, T),
     graph_mask (B, G))` over every batch of a stacked pool, with the
     running statistics, so a classification metric (ROC-AUC, AP,
-    accuracy) is computed on the host from one read. Eager and
-    forward-only, like the pool eval."""
+    accuracy, macro-F1) is computed on the host from one read. With
+    `node_level` the rows are nodes: (logits (B, N, C), y (B, N, 1),
+    node_mask (B, N)). Eager and forward-only, like the pool eval."""
 
     @torch.no_grad()
     def logits_pool(stacked: GraphBatch):
         with running_statistics(model):
             outs = [model(pool_entry(stacked, i))
                     for i in range(pool_size(stacked))]
-        return torch.stack(outs), stacked.y, stacked.graph_mask
+        mask = stacked.node_mask if node_level else stacked.graph_mask
+        return torch.stack(outs), stacked.y, mask
 
     return logits_pool
 

@@ -6,7 +6,9 @@ computed on the host in numpy, written out from their definitions (the
 JAX package calls sklearn, which the machines that run the port need
 not have), with the OGB task filters: a task whose labeled entries hold
 one class only is skipped, and with no task left the metric is NaN.
-The GPS link task: `link_pair_loss` (dot-decoded BCE over the batch's
+`macro_f1` is sklearn's `f1_score(average="macro")` written out the
+same way (the GPS node-classification metric). The GPS link task:
+`link_pair_loss` (dot-decoded BCE over the batch's
 labeled pairs, on the device) and the host-side ranking metrics
 `eval_mrr` / `graph_link_mrr`, numpy copies of the JAX package's.
 """
@@ -97,6 +99,27 @@ def average_precision(y_true: np.ndarray, y_score: np.ndarray) -> float:
             continue
         aps.append(_binary_ap(yt, y_score[m, t]))
     return float(np.mean(aps)) if aps else float("nan")
+
+
+def macro_f1(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """sklearn's `f1_score(y_true, y_pred, average="macro")` for integer
+    labels: the classes are the sorted union of the true and predicted
+    labels, each scores 2 TP / (2 TP + FP + FN) (0 for a class with no
+    true or no predicted member), and every class counts in the mean.
+    Empty input raises, as sklearn does."""
+    y_true = np.asarray(y_true).reshape(-1)
+    y_pred = np.asarray(y_pred).reshape(-1)
+    if y_true.size == 0 or y_true.shape != y_pred.shape:
+        raise ValueError(f"macro_f1: {y_true.size} true and {y_pred.size} "
+                         f"predicted labels")
+    labels = np.union1d(y_true, y_pred)
+    t = np.searchsorted(labels, y_true)
+    p = np.searchsorted(labels, y_pred)
+    C = labels.size
+    tp = np.bincount(t[t == p], minlength=C).astype(np.float64)
+    fp = np.bincount(p, minlength=C) - tp
+    fn = np.bincount(t, minlength=C) - tp
+    return float(np.mean(2 * tp / (2 * tp + fp + fn)))
 
 
 def link_pair_loss(node_emb: torch.Tensor, batch: GraphBatch) -> torch.Tensor:

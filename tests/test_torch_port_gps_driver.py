@@ -11,8 +11,10 @@ and val MAE then equal the JAX driver's printed ones at rel 1e-4 (or
 learning rate the val MAE at rel 3e-4 (see the test). Also held: the
 attention dump's keys and weights against JAX's `dump_attention`,
 `--eval_only` against the run's best val MAE, auto-resume, a frozen
-finetune (body parameters bit-equal to the pretrained checkpoint's), and
-every queue-9 config raising before it builds data.
+finetune (body parameters bit-equal to the pretrained checkpoint's), the
+11 configs of the former queue 9 running, all 24 building their
+datasets, and peptides-struct and PATTERN against the JAX driver's epoch
+lines.
 """
 
 import glob
@@ -36,7 +38,7 @@ CFG = os.path.join(REPO, "configs", "gps", "zinc-GPS.yaml")
 TINY = ["dataset.num_graphs", "40", "model.dim_h", "16", "model.num_layers",
         "2", "model.num_heads", "2", "train.batch_size", "8",
         "train.epochs", "3"]
-LINE = re.compile(r"\[seed 0\] epoch (\d{3}) lr \S+ loss (\S+) val MAE (\S+)")
+LINE = re.compile(r"\[seed 0\] epoch (\d{3}) lr \S+ loss (\S+) val \S+ (\S+)")
 QUEUE9 = ["actor", "chameleon", "code2", "cora", "imdb", "malnet", "mnist",
           "pattern", "peptides-func", "peptides-struct", "voc"]
 
@@ -67,10 +69,17 @@ def jax_run(tmp_path_factory):
 
 
 def _run_jax(tmp_path_factory, lr: str):
+    return run_jax_gps(tmp_path_factory.mktemp("jax_gps"), CFG,
+                       TINY + ["optim.base_lr", lr])
+
+
+def run_jax_gps(tmp, cfg_path: str, opts: list) -> dict:
+    """The JAX driver's `run_one` on `cfg_path` with `opts` (and
+    `dataset.dir` under `tmp`): its module, the flax variables its model
+    initialised, its epoch lines (loss, val metric) and its result."""
     import contextlib
     import io
 
-    tmp = tmp_path_factory.mktemp("jax_gps")
     mod = load_jax_driver("run_gps")
     captured = {}
 
@@ -81,8 +90,8 @@ def _run_jax(tmp_path_factory, lr: str):
             return variables
 
     mod.GPSModel = Capturing
-    cfg = jconfig.load_cfg(CFG, TINY + ["dataset.dir", str(tmp / "data"),
-                                        "optim.base_lr", lr])
+    cfg = jconfig.load_cfg(cfg_path, opts + ["dataset.dir",
+                                             str(tmp / "data")])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         res = mod.run_one(cfg, 0, str(tmp / "res"))
@@ -214,25 +223,89 @@ def test_main_eval_only_resume_and_frozen_finetune(tmp_path, capsys):
     assert any(not torch.equal(after[k], pre[k]) for k in heads)
 
 
+# the single-graph node-split configs keep their own batch of 1
+SINGLE_GRAPH = ("actor", "chameleon", "cora")
+
+
+@pytest.fixture(scope="module")
+def shared_data(tmp_path_factory):
+    """One dataset.dir for the config runs and builds below: a split the
+    runs featurized is a cache hit for the builds."""
+    return tmp_path_factory.mktemp("gps_data")
+
+
+def _tiny(name):
+    opts = TINY[:-2] + ["train.epochs", "2"]
+    if name in SINGLE_GRAPH:
+        i = opts.index("train.batch_size")
+        del opts[i:i + 2]
+    return opts
+
+
 @pytest.mark.parametrize("name", QUEUE9)
-def test_queue9_configs_raise_before_building_data(tmp_path, name):
+def test_queue9_configs_raise_before_building_data(tmp_path, shared_data,
+                                                   name):
+    """The 11 configs ROADMAP queue 9 once refused (their datasets and the
+    node_classification and sequence tasks) run through `main` on the
+    CPU at tiny widths, 2 epochs: finite losses and a finite metric
+    (accuracy, AP, MAE, macro-F1 or sub-token F1) in agg.json."""
+    import json
+
     path = os.path.join(REPO, "configs", "gps", f"{name}-GPS.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9"):
-        run_gps.main(["--cfg", path, "out_dir", str(tmp_path / "runs"),
-                      "dataset.dir", str(tmp_path / "data"),
-                      "--device", "cpu"])
-    assert os.listdir(tmp_path) == []
+    res = run_gps.main(["--cfg", path, *_tiny(name), "out_dir",
+                        str(tmp_path / "runs"), "dataset.dir",
+                        str(shared_data), "--device", "cpu"])
+    run = res["runs"][0]
+    losses = [e["loss"] for e in run["epochs"]]
+    metric = {k: v for k, v in run.items() if k.startswith("best_")}
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert len(metric) == 3 and all(math.isfinite(v)
+                                    for v in metric.values()), metric
+    cfg = load_cfg(path)
+    key = {"node_classification": "f1", "sequence": "f1",
+           "classification": "acc", "multilabel": "ap"}.get(
+        cfg.dataset.task, "mae")
+    assert f"best_val_{key}" in run
+    with open(os.path.join(res["out_dir"], "agg.json")) as f:
+        assert f"best_test_{key}_mean" in json.load(f)["agg"]
 
 
-def test_every_config_is_runnable_or_queue9():
-    """The 24 configs: the 13 the twin runs and the 11 of queue 9."""
-    paths = glob.glob(os.path.join(REPO, "configs", "gps", "*.yaml"))
-    label = lambda p: os.path.basename(p).replace("-GPS", "")[:-5]  # noqa
-    queued = []
+def test_every_config_is_runnable_or_queue9(shared_data):
+    """All 24 configs load through `config.py` and build their dataset
+    (40 graphs, the single-graph ones whole): three non-empty splits."""
+    paths = sorted(glob.glob(os.path.join(REPO, "configs", "gps", "*.yaml")))
+    assert len(paths) == 24
     for p in paths:
-        try:
-            run_gps.check_ported(load_cfg(p))
-        except NotImplementedError:
-            queued.append(label(p))
-    assert len(paths) == 24 and len(paths) - len(queued) == 13
-    assert sorted(queued) == sorted(QUEUE9)
+        cfg = load_cfg(p, ["dataset.num_graphs", "40", "dataset.dir",
+                           str(shared_data)])
+        splits, mean, std = run_gps.build_dataset(cfg, 0)
+        assert sorted(splits) == ["test", "train", "val"], p
+        assert all(len(v) for v in splits.values()), p
+        assert math.isfinite(mean) and math.isfinite(std), p
+
+
+@pytest.mark.parametrize("name", ["peptides-struct", "pattern"])
+def test_new_tasks_track_the_jax_driver(monkeypatch, tmp_path, name):
+    """peptides-struct (11 standardized targets, MAE) and PATTERN (node
+    classification, macro-F1) at tiny widths, lr 1e-4 (see
+    test_twin_tracks_the_jax_driver), 3 epochs from the JAX driver's
+    init: per-epoch loss and val metric at rel 1e-4, the best epoch and
+    the best test metric as JAX's."""
+    path = os.path.join(REPO, "configs", "gps", f"{name}-GPS.yaml")
+    opts = TINY + ["optim.base_lr", "1e-4"]
+    run = run_jax_gps(tmp_path / "jax", path, opts)
+    _carry(monkeypatch, run["variables"])
+    cfg = load_cfg(path, opts + ["dataset.dir", str(tmp_path / "data")])
+    res = run_gps.run_one(cfg, 0, str(tmp_path / "res"), "cpu")
+    want = run["lines"]
+    got = [(e["loss"], e["val"]) for e in res["epochs"]]
+    assert len(want) == len(got) == 3
+    for (jl, jv), (tl, tv) in zip(want, got):
+        assert _close(tl, jl) and _close(tv, jv), (got, want)
+    assert want[-1][0] < want[0][0]
+    jres = run["res"]
+    assert set(res) - {"epochs"} == set(jres)
+    assert res["best_epoch"] == jres["best_epoch"]
+    for k, v in jres.items():
+        if k.startswith("best_test"):
+            assert _close(res[k], v), (k, res[k], v)

@@ -177,3 +177,30 @@ def test_run_gps_defaults_to_cuda_and_raises_without_it(no_card, tmp_path):
                         "model.num_heads", "2", "train.batch_size", "8",
                         "train.epochs", "1", "--device", "cpu"])
     assert math.isfinite(res["runs"][0]["best_val_mae"])
+
+
+def test_no_module_imports_sklearn():
+    """No source of the port, nor chip_smoke.py, imports sklearn anywhere,
+    inside functions included (read with `ast`, so an import that only a
+    rare branch reaches is caught too): the card's machine has no
+    sklearn."""
+    import ast
+    import glob
+
+    paths = glob.glob(os.path.join(REPO, "escgnn_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(paths) > 60
+    found = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(os.path.relpath(path, REPO), n) for n in names
+                      if n.split(".")[0] == "sklearn"]
+    assert found == []

@@ -10,7 +10,13 @@
 # and the OGB twin's two rows (results_archive/ogb_tri_gnn: molhiv-shaped,
 # 2000 graphs, 60 epochs, dropout 0.5, triangle label, ROC-AUC;
 # results_archive/ogb_tri_pcba: molpcba-shaped, 8 tasks, emb 128 x 4,
-# dropout 0.3, 40 epochs, AP). Names after out_dir run only those rows.
+# dropout 0.3, 40 epochs, AP), the GPS rows at their configs' own
+# recipes (synthetic data; results_archive/gps_{pepstruct_canonical,mnist,
+# cora,pattern,malnet}): peptides-struct 600 graphs x 60 epochs (MAE),
+# MNIST 600 x 60 (accuracy), cora 100 epochs (macro-F1), PATTERN 200 x 60
+# (macro-F1), MalNet-Tiny 200 x 60 (accuracy), and the run_tu CV at its
+# defaults on the synthetic TU set (BaselineGNN gin0 32 x 3, 10 folds x
+# 100 epochs). Names after out_dir run only those rows.
 # Each run's output goes to <out_dir>/<name>.log (default
 # results/torch_quality); its last two lines and its wall seconds are
 # printed. Exits non-zero if any run failed.
@@ -49,4 +55,17 @@ run ogb_tri_pcba escgnn_tpu_torch.run_ogb_mol --dataset ogbg-molpcba \
     --h 3 --num_layer 4 --emb_dim 128 --drop_ratio 0.3 --epochs 40 \
     --num_tasks 8 --num_graphs 1200 --synth_label tri --metric ap \
     --res_dir "$out/ogb_tri_pcba_res" --data_dir "$out/ogb_data"
+gps() {
+    local name=$1 cfg=$2
+    shift 2
+    run "$name" escgnn_tpu_torch.run_gps --cfg "configs/gps/$cfg-GPS.yaml" \
+        out_dir "$out/${name}_res" dataset.dir "$out/gps_data" "$@"
+}
+gps gps_pepstruct peptides-struct
+gps gps_mnist mnist
+gps gps_cora cora
+gps gps_pattern pattern
+gps gps_malnet malnet
+run tu_cv escgnn_tpu_torch.run_tu --data_dir "$out/TU" \
+    --res_dir "$out/tu_cv_res"
 exit $status
