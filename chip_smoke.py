@@ -20,7 +20,17 @@ against its plain PyTorch version on the card, then drives these paths:
     one eager from the same state, K1 counted per graphed step from the
     captured graph), `[run_graphcount]` (3 epochs on 400 counting graphs,
     the best checkpoint restored and re-evaluated, the cache hit, a warm
-    start, one PPGN_eff epoch), `[run_zinc_cycle]` (node-level, 3 epochs
+    start, one PPGN_eff epoch), then `[compress_pools]` (both twins run
+    again with `--compress_pools`: the decoded pools bit-equal to the
+    plain ones, the counting twin's losses and val MAE bit-equal, the
+    pool bytes per batch both ways), `[mesh_world1]` (the ZINC twin under
+    `--mesh dp`, `ep` and `dp_ep` on an NCCL group of one rank, graphed,
+    held to `[run_zinc]`, K1 counted per graphed step; `--mesh halo` and
+    one halo step against the single-device width step;
+    `run_graphcount --multihost` bit-equal to `[run_graphcount]`) and
+    `[mesh_2rank]` (two processes sharing the card over gloo with CUDA
+    tensors, eager: the ep, dp_ep, dp and halo steps against their
+    one-process references), `[run_zinc_cycle]` (node-level, 3 epochs
     on 1000 molecules) and `[run_qm9]` (3 epochs on 1000 synthetic
     molecules, node-type extras through the graphed step), each with its
     `[pool_graph]`, and `[run_ogb_mol]` (OgbGNN 6 x 300 with a virtual
@@ -1029,8 +1039,9 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     )
 
     t0 = time.perf_counter()
-    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev,
-                                       batch_transform=batch_transform)
+    pools, steps, _ = stacked_batch_pools(train, spec, k=1, seed=0,
+                                          device=dev,
+                                          batch_transform=batch_transform)
     torch.cuda.synchronize()
     pool_build_s = time.perf_counter() - t0
     pool = pools[0]
@@ -1250,7 +1261,7 @@ def run_graphcount_twin(work: str, smi: str):
              [round(e["train_seconds"] / 3 * 1e3, 4)
               for e in eager["epochs"]]),
          card=json.dumps(smi), ok=True)
-    return k1_graphed
+    return k1_graphed, cold
 
 
 def _regression_twin(name, twin, work, smi, graphs, steps, loss_fn,
@@ -2091,7 +2102,8 @@ def _perturbed_spread(make_model, loss_fn, train, spec, lr, dev,
     from escgnn_tpu_torch.data.prefetch import pool_entry, stacked_batch_pools
     from escgnn_tpu_torch.train.loop import adam_with_plateau, train_step
 
-    pools, steps = stacked_batch_pools(train, spec, k=1, seed=0, device=dev)
+    pools, steps, _ = stacked_batch_pools(train, spec, k=1, seed=0,
+                                          device=dev)
     order = np.random.default_rng(0).permutation(steps)
     gen = torch.Generator().manual_seed(1)
     runs = []
@@ -3187,6 +3199,475 @@ def run_csl_twin(smi: str, dev):
     return graphed
 
 
+# ---------------------------------------------------------------------------
+# compressed pools and the parallel modes
+# ---------------------------------------------------------------------------
+
+K1_SYMBOL = "segsum_kernel"
+MESH_EPOCHS = 1  # the ZINC twin's depth under each parallel mode
+# `_hold_grads`: a reference gradient under ZERO_GRAD of the largest is
+# zero to rounding (a bias that feeds a BatchNorm reads 0.0 on the card);
+# its counterpart must stay under NOISE_GRAD of the largest
+ZERO_GRAD = 1e-6
+NOISE_GRAD = 1e-4
+
+
+def _expect_k1(name: str, got: int, want: int) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: K1 ran {got} times, want {want}")
+
+
+def _step_losses(res):
+    return [v for e in res["epochs"] for v in e["step_losses"]]
+
+
+def _watched(fn):
+    """(fn(), K1's launches in the CUDA-graph replays made during it)."""
+    ledger = _GraphLedger()
+    with ledger.watch():
+        out = fn()
+    return out, ledger.launches(K1_SYMBOL)
+
+
+def _twin_train(work: str, twin: str, res):
+    """A twin's train split as its run used it: read from the feature
+    cache in `work` and normalized with the run's statistics."""
+    import numpy as np
+
+    from escgnn_tpu_torch import run_graphcount as rg
+    from escgnn_tpu_torch.data.counting import normalize_targets
+    from escgnn_tpu_torch.featurize.cache import cache_path, load_graphs
+
+    if twin == "run_graphcount":
+        args = rg.build_parser().parse_args(
+            ["--num_graphs", "400", "--data_dir", os.path.join(work, "data")])
+        splits, _, _ = normalize_targets(rg.build_datasets(args), args.target)
+        return splits["train"]
+    train = load_graphs(cache_path(os.path.join(work, "data", "zinc_synth"),
+                                   "train_n1000_s0_esc_h3_rd_sl"))
+    for g in train:
+        g.y = ((g.y - res["mean"]) / res["std"]).astype(np.float32)
+    return train
+
+
+def run_compress_pools(work: str, smi: str, dev, zinc_res, count_res) -> int:
+    """`[compress_pools]`: the counting twin (400 graphs, 3 graphed
+    epochs) and the ZINC twin (1000 molecules, cut to 1 graphed epoch) run
+    again with `--compress_pools` beside their `[run_graphcount]` /
+    `[run_zinc]` runs. The train pool, built both ways on the card
+    (stacked_batch_pools, k 1), decodes to the plain pool bit for bit,
+    tensor by tensor; its bytes per batch both ways are printed. The
+    counting twin's step losses, epoch losses and val MAE are bit-equal.
+    The ZINC twin is not bit-reproducible on the card without compression
+    either (sums in no fixed order, amplified by Adam): a second plain
+    ZINC epoch is run beside the compressed one, and both are held to
+    `[run_zinc]`'s first epoch with the first step's loss bit-equal and
+    the later ones at rtol 1e-3, as `[pool_graph]` holds them. K1 runs
+    once per graphed step; the graphed ms/step is printed both ways.
+    Returns K1's graphed launches in the compressed runs."""
+    from escgnn_tpu_torch import run_graphcount as rg
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.data.compress import pool_nbytes
+    from escgnn_tpu_torch.data.prefetch import stacked_batch_pools
+
+    data = os.path.join(work, "data")
+    runs = (
+        ("run_graphcount", rg.main, count_res, 3, 3,
+         ["--num_graphs", "400"]),
+        ("run_zinc", run_zinc.main, zinc_res, 7, 1,
+         ["--num_graphs", "1000", "--num_workers", "2"]),
+    )
+    total = 0
+    for twin, main_fn, plain, steps, epochs, argv in runs:
+        argv = argv + ["--epochs", str(epochs), "--data_dir", data]
+        t0 = time.perf_counter()
+        comp, k1 = _watched(lambda: main_fn(
+            argv + ["--compress_pools", "--res_dir",
+                    os.path.join(work, twin + "_compressed")]))
+        seconds = time.perf_counter() - t0
+        _check_epochs(twin + " --compress_pools", comp, steps)
+        fields = {}
+        if epochs == len(plain["epochs"]):
+            for key in ("loss", "val_mae", "step_losses"):
+                if ([e[key] for e in comp["epochs"]]
+                        != [e[key] for e in plain["epochs"]]):
+                    raise AssertionError(f"{twin}: {key} with compressed "
+                                         f"pools differs from the plain run")
+            fields["bit_equal"] = True
+        else:
+            want = _step_losses(plain)[:steps * epochs]
+            rerun = main_fn(argv + ["--res_dir",
+                                    os.path.join(work, twin + "_rerun")])
+            for name, res in (("compressed", comp), ("plain_rerun", rerun)):
+                rel = _hold_losses(f"{twin} {name}", _step_losses(res), want,
+                                   first_rtol=0.0)
+                fields[f"{name}_max_loss_rel"] = max(rel)
+        _expect_k1(f"{twin} --compress_pools graphed", k1, steps * epochs)
+        total += k1
+        train = _twin_train(work, twin, plain)
+        pools = {}
+        for compress in (False, True):
+            built, n, decode = stacked_batch_pools(
+                train, plain["spec"], k=1, compress=compress, device=dev)
+            pools[compress] = (built[0], decode)
+        decoded = pools[True][1](pools[True][0]).tensors()
+        for k, t in pools[False][0].tensors().items():
+            if decoded[k].dtype != t.dtype or not torch.equal(decoded[k], t):
+                raise AssertionError(f"{twin}: decoded pool tensor {k} "
+                                     f"differs from the plain pool's")
+        per_batch = {c: pool_nbytes(p) / n for c, (p, _) in pools.items()}
+        del pools, decoded
+        ms = {name: [round(e["train_seconds"] / e["steps"] * 1e3, 4)
+                     for e in res["epochs"]]
+              for name, res in (("plain", plain), ("compressed", comp))}
+        _log("compress_pools", twin=twin, seconds=round(seconds, 3),
+             epochs=epochs, steps_per_epoch=steps,
+             pool_decode_bit_equal=True, **fields,
+             loss=json.dumps([e["loss"] for e in comp["epochs"]]),
+             plain_loss=json.dumps([e["loss"] for e in plain["epochs"]]),
+             val_mae=json.dumps([e["val_mae"] for e in comp["epochs"]]),
+             pool_mb_per_batch=per_batch[False] / 2**20,
+             compressed_pool_mb_per_batch=per_batch[True] / 2**20,
+             shrink=per_batch[False] / per_batch[True],
+             graphed_ms_per_step=json.dumps(ms["plain"]),
+             compressed_graphed_ms_per_step=json.dumps(ms["compressed"]),
+             k1_graphed_launches=k1, card=json.dumps(smi), ok=True)
+    return total
+
+
+def _hold_losses(name, got, want, first_rtol=1e-5, rtol=1e-3):
+    """The first step's loss (same weights) at `first_rtol`, every later
+    one at `rtol` (sums in another order, amplified by Adam); returns the
+    largest relative difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} steps, want {len(want)}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if rel[0] > first_rtol or max(rel) > rtol:
+        raise AssertionError(f"{name}: losses {got} against {want}")
+    return rel
+
+
+def _zinc_model(dev):
+    """The ZINC twin's model at its default widths, seed 0."""
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEff
+
+    args = run_zinc.build_parser().parse_args([])
+    return NestedGINEff(run_zinc.zinc_model_config(args), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().float().cpu()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def _hold_grads(name, got: dict, want: dict, rel=1e-3) -> tuple:
+    """Each parameter's gradient within `rel` of its own norm, the GPS
+    tests' rule at a bound the card needs: its segment sums add with
+    atomics in no fixed order, so an entry-wise bound fails on entries
+    that are rounding noise. Only a gradient that is zero to rounding in
+    the reference (norm under `ZERO_GRAD` of the largest: the biases
+    that feed a BatchNorm) is exempt, and must stay under `NOISE_GRAD`
+    of the largest. Returns the largest norm of a difference over its
+    gradient's norm, the number of exempt gradients and their largest
+    norm over the largest reference norm."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: gradients of {sorted(got)} against "
+                             f"{sorted(want)}")
+    norms = {k: float(w.norm()) for k, w in want.items()}
+    top = max(norms.values())
+    worst = 0.0
+    exempt = []
+    for k, w in want.items():
+        if norms[k] < ZERO_GRAD * top:
+            exempt.append(float(got[k].norm()) / top)
+            if exempt[-1] >= NOISE_GRAD:
+                raise AssertionError(
+                    f"{name} {k}: norm {float(got[k].norm())} where the "
+                    f"reference's is zero to rounding ({norms[k]})")
+            continue
+        diff = float((got[k] - w).norm())
+        worst = max(worst, diff / norms[k])
+        if diff > rel * norms[k]:
+            raise AssertionError(f"{name} {k}: difference {diff} over "
+                                 f"{rel} of the norm {norms[k]}")
+    return worst, len(exempt), max(exempt, default=0.0)
+
+
+def _plain_grads(model, batch, loss_fn):
+    """Loss and gradients of one plain SGD train step."""
+    from escgnn_tpu_torch.train.loop import train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    loss = float(train_step(model, opt, batch, loss_fn))
+    return loss, _grads(model)
+
+
+def _mesh_inputs(work: str, zinc_res, halo_spec):
+    """Host batches of the ZINC twin's train split for the mesh checks:
+    two uniform + dedup batches of 128 (A = the first) and one width
+    batch of 128 under the halo run's spec."""
+    from escgnn_tpu_torch.data.batching import pad_and_batch
+
+    train = _twin_train(work, "run_zinc", zinc_res)
+    spec = zinc_res["spec"]
+    return dict(
+        B0=pad_and_batch(train[:128], spec, device="cpu"),
+        B1=pad_and_batch(train[128:256], spec, device="cpu"),
+        C=pad_and_batch(train[:128], halo_spec, device="cpu"))
+
+
+def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
+    """`[mesh_world1]`: the ZINC twin (1000 molecules, its widths, 1
+    epoch) under `--mesh dp`, `ep` and `dp_ep --mesh_dp 1` on an NCCL
+    group of one rank on the card, each epoch one CUDA-graphed pool step
+    with its collectives: the step losses held to the `[run_zinc]` run's
+    (first step rtol 1e-5, later ones 1e-3), K1 once per graphed step
+    (`_GraphLedger`). `--mesh halo` for 1 epoch (the width layout, no
+    port kernel), and one halo step on a width batch of 128 held to the
+    single-device step (loss rtol 1e-5, each gradient within 1e-2 of its
+    norm, `_hold_grads`). `run_graphcount --multihost` with no
+    coordinator against the `[run_graphcount]` run, bit for bit. Returns
+    K1's graphed launches per mode and the host batches of `_mesh_inputs`
+    (for `[mesh_2rank]`)."""
+    from escgnn_tpu_torch import run_graphcount as rg
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.parallel import halo
+    from escgnn_tpu_torch.parallel.mesh import make_mesh
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    data = os.path.join(work, "data")
+    argv = ["--num_graphs", "1000", "--epochs", str(MESH_EPOCHS),
+            "--num_workers", "2", "--data_dir", data]
+    want = _step_losses(zinc_res)[:7 * MESH_EPOCHS]
+    k1 = {}
+    for mode, flags in (("dp", ["--mesh", "dp"]), ("ep", ["--mesh", "ep"]),
+                        ("dp_ep", ["--mesh", "dp_ep", "--mesh_dp", "1"])):
+        t0 = time.perf_counter()
+        res, n = _watched(lambda: run_zinc.main(
+            argv + flags + ["--res_dir", os.path.join(work, "zinc_" + mode)]))
+        seconds = time.perf_counter() - t0
+        _check_epochs(f"run_zinc --mesh {mode}", res, steps=7)
+        rel = _hold_losses(f"run_zinc --mesh {mode}", _step_losses(res), want)
+        _expect_k1(f"--mesh {mode} graphed", n, 7 * MESH_EPOCHS)
+        k1[f"mesh_{mode}"] = n
+        _log("mesh_world1", mode=mode, backend="nccl", world=1,
+             seconds=round(seconds, 3), epochs=MESH_EPOCHS,
+             first_loss_rel=rel[0], max_loss_rel=max(rel),
+             val_mae=json.dumps([e["val_mae"] for e in res["epochs"]]),
+             graphed_ms_per_step=json.dumps(
+                 [round(e["train_seconds"] / e["steps"] * 1e3, 4)
+                  for e in res["epochs"]]),
+             k1_graphed_launches=n, card=json.dumps(smi), ok=True)
+
+    t0 = time.perf_counter()
+    hres, n = _watched(lambda: run_zinc.main(
+        argv + ["--mesh", "halo", "--res_dir", os.path.join(work, "zinc_h")]))
+    seconds = time.perf_counter() - t0
+    _check_epochs("run_zinc --mesh halo", hres, steps=7)
+    _expect_k1("--mesh halo graphed", n, 0)
+    inputs = _mesh_inputs(work, zinc_res, hres["spec"])
+    plain = _zinc_model(dev)
+    sharded = copy.deepcopy(plain)
+    loss, grads = _plain_grads(plain, inputs["C"].to(dev), l1_graph_loss)
+    mesh = make_mesh(0, ("model",), device=dev)
+    shard = halo.halo_shard(halo.build_halo_batch(
+        inputs["C"], halo.plan_halo_sharding(inputs["C"], 1)), 0).to(dev)
+    hloss = float(halo.make_halo_nested_train_step(
+        sharded, torch.optim.SGD(sharded.parameters(), lr=1e-2), "model",
+        graph_loss_fn=l1_graph_loss)(shard))
+    _hold_losses("halo step", [hloss], [loss])
+    # both sides sum with atomics in their own order: 1.5e-6 to 2.7e-4 of
+    # the norm read in five chip runs
+    gerr, n_zero, zero_max = _hold_grads("halo step", _grads(sharded), grads,
+                                         rel=1e-2)
+    _log("mesh_world1", mode="halo", backend="nccl", world=1,
+         seconds=round(seconds, 3), epochs=MESH_EPOCHS,
+         loss=json.dumps([e["loss"] for e in hres["epochs"]]),
+         graphed_ms_per_step=json.dumps(
+             [round(e["train_seconds"] / e["steps"] * 1e3, 4)
+              for e in hres["epochs"]]),
+         step_loss=hloss, plain_step_loss=loss, max_grad_rel_err=gerr,
+         zero_grads=n_zero, zero_grads_max_norm_rel=zero_max,
+         kernels="none (width layout)", card=json.dumps(smi), ok=True)
+
+    t0 = time.perf_counter()
+    multi = rg.main(["--num_graphs", "400", "--epochs", "3", "--data_dir",
+                     data, "--multihost",
+                     "--res_dir", os.path.join(work, "count_multihost")])
+    seconds = time.perf_counter() - t0
+    for key in ("loss", "val_mae", "step_losses"):
+        got = [e[key] for e in multi["epochs"]]
+        if got != [e[key] for e in count_res["epochs"]]:
+            raise AssertionError(f"run_graphcount --multihost: {key} {got} "
+                                 f"differs from the run without it")
+    _log("mesh_world1", mode="multihost", processes=1,
+         seconds=round(seconds, 3), bit_equal=True,
+         loss=json.dumps([e["loss"] for e in multi["epochs"]]),
+         card=json.dumps(smi), ok=True)
+    return k1, inputs
+
+
+def run_mesh_2rank(work: str, smi: str, dev, inputs: dict) -> dict:
+    """`[mesh_2rank]`: two processes share the card over gloo with CUDA
+    tensors and eager steps (gloo's collectives cannot be captured), on
+    the ZINC twin's widths and batches of 128: the ep step (each rank half
+    the edges of batch A = B0, its own sorted view, K1 on it) and the
+    dp_ep step (2 data shards of 64 graphs) against the plain
+    single-device step on A; the dp step (rank r on batch B_r) against the mean of the two
+    batches' gradients in this process; the two-shard halo step on the
+    width batch C against the single-device step. Loss rtol 1e-5; each
+    gradient within 1e-3 of its own norm for dp and 1e-2 for the modes
+    that split a sum over the ranks (`_hold_grads`), on both ranks.
+    Returns K1's launches on rank 0 per mode."""
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    out_dir = os.path.join(work, "mesh_2rank")
+    os.makedirs(out_dir)
+    torch.save(dict(inputs, device=str(dev)), os.path.join(out_dir, "in.pt"))
+
+    # references in this process: the plain single-device step
+    refs = {}
+    refs["ep"] = refs["dp_ep"] = _plain_grads(
+        _zinc_model(dev), inputs["B0"].to(dev), l1_graph_loss)
+    dp_losses, dp_grads = [], []
+    for b in ("B0", "B1"):
+        lb, gb = _plain_grads(_zinc_model(dev), inputs[b].to(dev),
+                              l1_graph_loss)
+        dp_losses.append(lb)
+        dp_grads.append(gb)
+    refs["dp"] = (sum(dp_losses) / 2,
+                  {k: (dp_grads[0][k] + dp_grads[1][k]) / 2
+                   for k in dp_grads[0]})
+    refs["halo"] = _plain_grads(_zinc_model(dev), inputs["C"].to(dev),
+                                l1_graph_loss)
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(port), out_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    k1 = {}
+    for mode in ("ep", "dp_ep", "dp", "halo"):
+        want_loss, want_grads = refs[mode]
+        # a sum split over ranks cancels in another order than one
+        # process's: ep / dp_ep / halo gradients read up to 5.8e-4 of
+        # their norm in four chip runs; dp splits no sum (5e-7)
+        bound = 1e-3 if mode == "dp" else 1e-2
+        errs, zeros = [], []
+        for r, res in enumerate(ranks):
+            got_loss, got_grads, n = res[mode]
+            _hold_losses(f"2-rank {mode} rank {r}", [got_loss], [want_loss])
+            err, n_zero, zero_max = _hold_grads(
+                f"2-rank {mode} rank {r}", got_grads, want_grads, rel=bound)
+            errs.append(err)
+            zeros.append(zero_max)
+        want_k1 = 0 if mode == "halo" else 1
+        _expect_k1(f"2-rank {mode} step", ranks[0][mode][2], want_k1)
+        if want_k1:
+            k1[f"mesh_2rank_{mode}"] = ranks[0][mode][2]
+        _log("mesh_2rank", mode=mode, backend="gloo", world=2,
+             device="cuda:0 shared", loss=ranks[0][mode][0],
+             reference_loss=want_loss, max_grad_rel_err=max(errs),
+             grad_rel_bound=bound, zero_grads=n_zero,
+             zero_grads_max_norm_rel=max(zeros),
+             k1_launches_rank0=ranks[0][mode][2],
+             card=json.dumps(smi), ok=True)
+    _log("mesh_2rank", seconds=round(seconds, 3),
+         rank_seconds=json.dumps([res["seconds"] for res in ranks]),
+         card=json.dumps(smi), ok=True)
+    return k1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One rank of `[mesh_2rank]` (`chip_smoke.py --mesh-rank R PORT
+    DIR`): joins the gloo group of two on localhost, runs the ep, dp_ep,
+    dp and halo steps on the device DIR/in.pt names (the card the parent
+    runs on) and writes (loss, gradients, K1 launches) per mode to
+    DIR/rank<R>.pt."""
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from escgnn_tpu_torch.ops import expand_cuda
+    from escgnn_tpu_torch.parallel import data_parallel as dpm
+    from escgnn_tpu_torch.parallel import edge_partition as ep
+    from escgnn_tpu_torch.parallel import halo
+    from escgnn_tpu_torch.parallel.mesh import make_mesh
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    t0 = time.perf_counter()
+    inputs = torch.load(os.path.join(out_dir, "in.pt"), weights_only=False)
+    dev = torch.device(inputs["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    res = {}
+
+    def run(mode, make_step, batch, mesh):
+        t = time.perf_counter()
+        model = _zinc_model(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+        step = make_step(model, opt, mesh)
+        expand_cuda.launches = 0
+        loss = float(step(batch))
+        res[mode] = (loss, _grads(model), expand_cuda.launches)
+        res[mode + "_seconds"] = round(time.perf_counter() - t, 3)
+
+    mesh = make_mesh(0, ("model",), device=dev)
+    run("ep", lambda m, o, mesh: ep.make_ep_train_step(
+        m, o, l1_graph_loss),
+        ep.shard_batch_by_edges(inputs["B0"], mesh, "model", device=dev),
+        mesh)
+    plan = halo.plan_halo_sharding(inputs["C"], 2)
+    run("halo", lambda m, o, mesh: halo.make_halo_nested_train_step(
+        m, o, "model", graph_loss_fn=l1_graph_loss),
+        halo.halo_shard(halo.build_halo_batch(inputs["C"], plan),
+                        rank).to(dev), mesh)
+    mesh = make_mesh(0, ("data", "model"), (2, 1), device=dev)
+    run("dp_ep", lambda m, o, mesh: ep.make_dp_ep_train_step(
+        m, o, l1_graph_loss),
+        ep.shard_batch_2d(inputs["B0"], mesh, device=dev), mesh)
+    mesh = make_mesh(0, ("data",), device=dev)
+    run("dp", lambda m, o, mesh: dpm.make_dp_train_step(
+        m, o, l1_graph_loss, mesh),
+        inputs[f"B{rank}"].to(dev), mesh)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3332,9 +3813,20 @@ def main() -> int:
     # 9. the driver twins, in a temporary directory outside the checkout
     with tempfile.TemporaryDirectory() as work:
         zinc_res = run_zinc_twin(work, smi)
+        k1_zinc = check_zinc_pool_graph(work, zinc_res, dev)
+        k1_count, count_res = run_graphcount_twin(work, smi)
+        # slice 12: the compressed pools, then the parallel modes on one
+        # NCCL rank and on two gloo ranks sharing the card
+        k1_mesh = {"compress_pools": run_compress_pools(
+            work, smi, dev, zinc_res, count_res)}
+        k1_world1, mesh_inputs = run_mesh_world1(work, smi, dev, zinc_res,
+                                                 count_res)
+        k1_mesh.update(k1_world1)
+        k1_mesh.update(run_mesh_2rank(work, smi, dev, mesh_inputs))
+        torch.distributed.destroy_process_group()
         k1_paths = {"train": main_launches["k1"],
-                    "run_zinc": check_zinc_pool_graph(work, zinc_res, dev),
-                    "run_graphcount": run_graphcount_twin(work, smi),
+                    "run_zinc": k1_zinc,
+                    "run_graphcount": k1_count, **k1_mesh,
                     "run_zinc_cycle": run_zinc_cycle_twin(work, smi),
                     "run_qm9": run_qm9_twin(work, smi),
                     "run_ogb_mol": run_ogb_mol_twin(work, smi, dev)}
@@ -3403,4 +3895,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

@@ -12,7 +12,10 @@
     them on the card (`train/loop.py`), so an epoch copies nothing from
     the host but its order vector. `stacked_batch_pools` draws the JAX
     package's permutations from the same seed, so both packages train on
-    the same batch sequence.
+    the same batch sequence. With `compress=True` the pools are stored
+    losslessly downcast (`data/compress.py`) and come with the decoder
+    the pool step applies on the card; `stack_split_compressed` does the
+    same for a fixed split.
 
 `batch_transform` (host batch -> host batch, a host batch being a
 `GraphBatch` whose tensors lie on the CPU) applies to every batch before
@@ -159,6 +162,23 @@ def pool_entry(stacked: GraphBatch, i: int) -> GraphBatch:
         {k: v[i] for k, v in stacked.tensors().items()})
 
 
+def stack_split_compressed(graphs: Sequence[GraphData], spec: BatchSpec,
+                           device="cuda", batch_transform=None) -> tuple:
+    """`stack_split` with lossless downcasting (`data/compress.py`):
+    returns the stack on `device` and its decoder, for eval splits that
+    would otherwise hold f32 stacks on the card beside a compressed train
+    pool."""
+    from escgnn_tpu_torch.data.compress import compress_tree, make_decoder
+
+    host, metas = compress_tree(
+        stack_batches(_host_batches(graphs, spec, batch_transform)))
+    return host.to(device), make_decoder(metas)
+
+
+def _identity(batch: GraphBatch) -> GraphBatch:
+    return batch
+
+
 def stacked_batch_pools(
     graphs: Sequence[GraphData],
     spec: BatchSpec,
@@ -168,29 +188,47 @@ def stacked_batch_pools(
     compress: bool = False,
     device="cuda",
     batch_transform=None,
-) -> tuple[list, int]:
-    """`k` membership-shuffled stacked train pools on `device` and the
-    number of batches per epoch.
+) -> tuple:
+    """`k` membership-shuffled stacked train pools on `device`, the
+    number of batches per epoch, and the pools' decoder.
 
     Pool i holds the whole train split, padded in the order of the i-th
     `np.random.default_rng(seed).permutation` (the JAX package's draws).
     Cycling pools across epochs (pool (epoch-1) % k, its batches in a
     fresh order each epoch) stands in for re-forming batches every epoch
     at a bounded copy cost. All pools live on the card at once, so k is
-    cut to keep them under `max_total_bytes`. `batch_transform` (the
-    bucketed copy layout, pinned budgets) applies to every batch of
-    every pool, so all pools keep one shape."""
-    if compress:
-        raise NotImplementedError(
-            "compress=True: the compressed pools (data/compress.py) are "
-            "ROADMAP queue 9 of the port")
+    cut to keep them under `max_total_bytes`, counted in the bytes the
+    pools take there. `batch_transform` (the bucketed copy layout, pinned
+    budgets) applies to every batch of every pool, so all pools keep one
+    shape.
+
+    `compress=True` stores the pools losslessly downcast
+    (`data/compress.py`; pools after the first take the first one's
+    dtypes) and returns the decoder the pool step must apply to each
+    batch; with `compress=False` the decoder is the identity."""
+    from escgnn_tpu_torch.data.compress import (
+        compress_tree,
+        compress_tree_like,
+        make_decoder,
+    )
+
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     pools: list = []
+    decode = _identity
+    first = None
     kk = max(1, k)
     while len(pools) < kk:
         shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
         host = stack_batches(_host_batches(shuffled, spec, batch_transform))
+        if compress:
+            if first is None:
+                host, metas = compress_tree(host)
+                decode = make_decoder(metas)
+                first = host
+            else:
+                # one decoder and one captured step for every pool
+                host = compress_tree_like(host, first)
         if not pools:
             per_pool = _nbytes(host)
             fit = max(1, int(max_total_bytes // max(per_pool, 1)))
@@ -201,4 +239,5 @@ def stacked_batch_pools(
                 kk = fit
         pools.append(host.to(device))
     num_batches = (len(graphs) + spec.num_graphs - 1) // spec.num_graphs
-    return pools, num_batches
+    return pools, num_batches, decode
+

@@ -569,7 +569,7 @@ class _Passthrough(nn.Module):
     """GINEConv's MLP slot when the MLP lives in the layer (flax keeps it
     there, as `MLP_0`)."""
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, axis=None):
         return x
 
 

@@ -91,6 +91,11 @@ class MaskedBatchNorm(nn.Module):
     multiplicities) make BN over deduplicated rows equal BN over the
     expanded row set. Statistics and normalization run in f32; the output
     has the input's dtype.
+
+    `axis` (JAX's `axis_name`): the rows are split over the ranks of this
+    mesh axis (a name or a tuple of names, `parallel/mesh.py`), so the
+    batch statistics' sums s1, s2 and n are summed over them and every
+    rank normalizes with the global statistics.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -109,7 +114,7 @@ class MaskedBatchNorm(nn.Module):
         self.use_running_average = not mode
         return self
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None, axis=None):
         xf = x.to(torch.float32)
         if self.use_running_average:
             mean, var = self.running_mean, self.running_var
@@ -120,7 +125,14 @@ class MaskedBatchNorm(nn.Module):
                 m = mask.to(torch.float32)[:, None]
             s1 = (xf * m).sum(0)
             s2 = (xf * xf * m).sum(0)
-            n = m.sum().clamp_min(1.0)
+            n = m.sum()
+            if axis is not None:
+                from escgnn_tpu_torch.parallel.mesh import psum
+
+                f = s1.shape[0]
+                tot = psum(torch.cat([s1, s2, n.reshape(1)]), axis)
+                s1, s2, n = tot[:f], tot[f:2 * f], tot[2 * f]
+            n = n.clamp_min(1.0)
             mean = s1 / n
             var = (s2 / n - mean * mean).clamp_min(0.0)
             with torch.no_grad():
@@ -191,7 +203,9 @@ class MLP(nn.Module):
     """The reference's Sequential pattern: [Linear -> Dropout -> BN ->
     act] per hidden layer; `pre_act=True` prepends Dropout -> BN -> act
     before the first Linear (the z_embedding head shape). Dropout draws
-    from `rng` (needed when `dropout` > 0)."""
+    from `rng` (needed when `dropout` > 0). `axis` in the call is the
+    mesh axis the rows are split over: every BN sums its statistics over
+    it."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  act: Callable, pre_act: bool = False, dropout: float = 0.0,
@@ -216,11 +230,11 @@ class MLP(nn.Module):
         self.add_module(name, module)
         self.order.append(name)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, axis=None):
         for name in self.order:
             layer = getattr(self, name)
             if isinstance(layer, MaskedBatchNorm):
-                x = self.act(layer(self.drop(x), mask))
+                x = self.act(layer(self.drop(x), mask, axis))
             else:
                 x = layer(x)
         return x
@@ -304,7 +318,18 @@ class GINEConv(nn.Module):
         out = mlp((1 + eps) * x + sum_{(j->i)} relu(x_j + lin(e_ji)))
     On the uniform per-graph layout (`uniform_nodes`, the batch's
     `nodes_per_graph`) the aggregation is the per-graph one-hot einsum,
-    else a masked segment sum."""
+    else a masked segment sum.
+
+    Sharded execution (`parallel/`), chosen in the call:
+      * `edge_shard_axis`: this rank holds a slice of the edges and all
+        the nodes it touches; the local segment sum is summed over the
+        axis (the uniform one-hot path is bypassed);
+      * `halo` = (axis, boundary_send, halo_src): receiver-range node and
+        edge shards (`parallel/halo.py`); x holds this rank's node rows,
+        the remote sender rows arrive by one boundary exchange, and the
+        segment sum stays local;
+      * `axis`: the mesh axis the node rows are split over, for the MLP's
+        BatchNorms."""
 
     def __init__(self, in_channels: int, mlp: MLP,
                  edge_dim: Optional[int] = None, *,
@@ -318,19 +343,33 @@ class GINEConv(nn.Module):
         )
 
     def forward(self, x, senders, receivers, edge_emb, edge_mask,
-                node_mask=None, uniform_nodes: Optional[int] = None):
+                node_mask=None, uniform_nodes: Optional[int] = None, *,
+                edge_shard_axis=None, halo: Optional[tuple] = None,
+                axis=None):
         if self.lin_edge is not None:
             edge_emb = self.lin_edge(edge_emb)
-        if uniform_nodes is not None:
+        if (uniform_nodes is not None and edge_shard_axis is None
+                and halo is None):
             agg = _dense_local_aggregate(
                 x, senders, receivers, edge_emb, edge_mask, uniform_nodes
             )
         else:
+            src = x
+            if halo is not None:
+                from escgnn_tpu_torch.parallel.halo import halo_exchange
+
+                halo_axis, boundary_send, halo_src = halo
+                src = torch.cat(
+                    [x, halo_exchange(x, boundary_send, halo_src, halo_axis)])
             dt = torch.promote_types(x.dtype, edge_emb.dtype)
-            msg = F.relu(x.index_select(0, senders.long()).to(dt)
+            msg = F.relu(src.index_select(0, senders.long()).to(dt)
                          + edge_emb.to(dt))
             agg = segment_sum(msg, receivers, x.shape[0], edge_mask)
+        if edge_shard_axis is not None:
+            from escgnn_tpu_torch.parallel.mesh import psum
+
+            agg = psum(agg, edge_shard_axis)
         dt = torch.promote_types(
             torch.promote_types(x.dtype, agg.dtype), self.eps.dtype)
         out = (1.0 + self.eps) * x.to(dt) + agg.to(dt)
-        return self.mlp(out, node_mask)
+        return self.mlp(out, node_mask, axis)

@@ -27,10 +27,31 @@ model's generator `rng` (seeded with `rng_seed`) in `train()` only.
 BatchNorm's statistics mode is its own flag (flax's
 `use_running_average`, `models/layers.py`), which `train()` / `eval()`
 set by default.
+
+Sharded execution (`parallel/`): the config names the mesh axes the
+batch's rows are split over, and the forward sums over them.
+  * `edge_shard_axis` (ep): this rank holds a slice of the edges and all
+    nodes. Each conv's local segment sum is summed over the axis; the z
+    MLP's BatchNorm over edge rows sums its statistics over it (on the
+    dedup layout the unique rows carry this shard's multiplicities, so
+    that sum is over edge rows too); the node BatchNorms do not.
+  * `data_axis` (with `edge_shard_axis`, dp_ep): the node and graph rows
+    are split over this axis as well, so every node- and graph-row
+    BatchNorm sums over it and the edge-row ones over both axes. It is a
+    field of this package only: JAX partitions the 2-D mesh with GSPMD.
+  * `halo_axis`: receiver-range node and edge shards (`parallel/halo.py`,
+    the width layout): the convs exchange boundary rows, every
+    BatchNorm sums over the axis, and a graph head pools its local rows
+    into the batch's global graph slots and sums them over the axis, so
+    the head (whose BatchNorm then sums nothing) runs replicated.
+`sharded_view` gives a model that shares every parameter and buffer with
+this one under other axes (the drivers train the sharded view and
+evaluate the plain model).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -73,23 +94,24 @@ class NestedGINEffConfig:
     node_add_embed_vocab: int = 0  # >0: x += Embedding(vocab)(node_type)
     edge_float_attr: bool = False  # concat continuous edge_attr onto z_emb
     compute_dtype: str = "float32"  # float32 | bfloat16 for conv stacks
-    # sharded execution: kept for parity with the JAX config, not ported
-    # yet (they raise)
+    # sharded execution (see the module docstring): mesh axis names
     edge_shard_axis: Optional[str] = None
     halo_axis: Optional[str] = None
+    data_axis: Optional[str] = None
 
 
-def _check_ported(cfg: NestedGINEffConfig):
-    unported = {
-        "halo_axis": cfg.halo_axis is not None,
-        "edge_shard_axis": cfg.edge_shard_axis is not None,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            "NestedGINEffConfig options not ported yet: " + ", ".join(bad))
+def _check_config(cfg: NestedGINEffConfig):
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(cfg.compute_dtype)
+    if cfg.halo_axis is not None and (cfg.edge_shard_axis or cfg.data_axis):
+        raise ValueError("halo_axis shards nodes and edges on its own; it "
+                         "takes no edge_shard_axis or data_axis")
+
+
+def _join(*axes):
+    """The axes that are set, as one name or a tuple (None for none)."""
+    names = tuple(a for a in axes if a is not None)
+    return None if not names else names[0] if len(names) == 1 else names
 
 
 _ACTS = {"relu": F.relu, "elu": F.elu}
@@ -108,7 +130,7 @@ class NestedGINEff(nn.Module):
                  device="cuda", generator: Optional[torch.Generator] = None,
                  edge_attr_dim: int = 0, rng_seed: int = 0):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -171,9 +193,26 @@ class NestedGINEff(nn.Module):
         """The generators a train-mode forward draws from."""
         return [self.rng] if self.cfg.dropout > 0 else []
 
+    def sharded_view(self, **axes) -> "NestedGINEff":
+        """This model under other mesh axes (`edge_shard_axis`,
+        `halo_axis`, `data_axis`): a shallow copy whose config differs,
+        sharing every parameter, buffer and generator with this one."""
+        view = copy.copy(self)
+        view.cfg = dataclasses.replace(self.cfg, **axes)
+        _check_config(view.cfg)
+        return view
+
     def forward(self, batch: GraphBatch):
         cfg = self.cfg
         node_mask, edge_mask = batch.node_mask, batch.edge_mask
+        # BatchNorm sum axes: node rows are split under halo and dp_ep,
+        # edge rows under every sharded mode
+        node_ax = cfg.halo_axis or cfg.data_axis
+        edge_ax = cfg.halo_axis or _join(cfg.data_axis, cfg.edge_shard_axis)
+        halo = None
+        if cfg.halo_axis is not None:
+            halo = (cfg.halo_axis, batch.extras["halo_boundary_send"],
+                    batch.extras["halo_src"])
 
         # --- node input features ---
         x = batch.x
@@ -188,15 +227,16 @@ class NestedGINEff(nn.Module):
                 node_type.reshape(node_type.shape[0]))
 
         # --- per-edge structural embedding ---
-        u = (zemb_unique_rows(self.z_initial, batch) if cfg.dropout == 0.0
-             else None)
+        u = (zemb_unique_rows(self.z_initial, batch)
+             if cfg.dropout == 0.0 and cfg.halo_axis is None else None)
         if u is not None and batch.enc_row_weight is not None:
             # dedup layout: the z MLP runs on the R unique rows with
             # multiplicity-weighted BN, then one gather to edges
-            z_emb = expand_rows(self.z_embedding(u, batch.enc_row_weight), batch)
+            z_emb = expand_rows(
+                self.z_embedding(u, batch.enc_row_weight, edge_ax), batch)
         else:
             z_emb = zemb_from_batch(self.z_initial, batch)
-            z_emb = self.z_embedding(z_emb, edge_mask)
+            z_emb = self.z_embedding(z_emb, edge_mask, edge_ax)
         if cfg.edge_embed_vocab:
             ea = batch.edge_attr
             z_emb = torch.cat(
@@ -211,27 +251,54 @@ class NestedGINEff(nn.Module):
         # --- GINE stack over the original graph ---
         xs = []
         if cfg.use_x_embedding_jk:
-            xs.append(self.x_embedding(batch.x.to(torch.float32), node_mask))
+            xs.append(self.x_embedding(batch.x.to(torch.float32), node_mask,
+                                       node_ax))
         h = x
         z_c = z_emb.to(cdt)
+        uniform = None if halo is not None else batch.nodes_per_graph
         for conv in self.convs:
             h = conv(h.to(cdt), batch.senders, batch.receivers, z_c,
-                     edge_mask, node_mask, uniform_nodes=batch.nodes_per_graph)
+                     edge_mask, node_mask, uniform_nodes=uniform,
+                     edge_shard_axis=cfg.edge_shard_axis, halo=halo,
+                     axis=node_ax)
             xs.append(h)
 
         # JK concat + pooling in the conv compute dtype, head in f32
         h = torch.cat([a.to(cdt) for a in xs], dim=-1)
+        head_ax = node_ax
         if cfg.graph_pred:
-            h = pool_nodes_to_graphs(
-                h, batch, reduce="sum" if cfg.pool == "add" else "mean")
+            if halo is not None:
+                h = self._halo_pool(h, batch)
+                head_ax = None  # the pooled rows are whole on every rank
+            else:
+                h = pool_nodes_to_graphs(
+                    h, batch, reduce="sum" if cfg.pool == "add" else "mean")
             head_mask = batch.graph_mask
         else:
             head_mask = node_mask
         h = h.to(torch.float32)
         h = self.lin1(h)
-        h = self.bn_lin1(h, head_mask)
+        h = self.bn_lin1(h, head_mask, head_ax)
         if cfg.head_order == "act_dropout":
             h = self.head_drop(self.act(h))
         else:
             h = self.act(self.head_drop(h))
         return self.lin2(h)
+
+    def _halo_pool(self, h, batch: GraphBatch):
+        """The graph pool over range-sharded node rows: this rank's rows
+        summed into the batch's G graph slots (`node_graph` holds global
+        graph ids), then summed over the halo axis, so every rank holds
+        the exact (G, F) rows."""
+        from escgnn_tpu_torch.ops.segment import segment_sum
+        from escgnn_tpu_torch.parallel.mesh import psum
+
+        G = batch.graph_mask.shape[0]
+        mask = batch.node_mask
+        s = psum(segment_sum(h.to(torch.float32), batch.node_graph, G, mask),
+                 self.cfg.halo_axis)
+        if self.cfg.pool == "add":
+            return s
+        cnt = psum(segment_sum(mask.to(torch.float32), batch.node_graph, G),
+                   self.cfg.halo_axis)
+        return s / cnt.clamp_min(1.0)[:, None]

@@ -514,7 +514,7 @@ def run_one(cfg, seed: int, out_dir: str, device) -> dict:
         print(f"[seed {seed}] auto-resumed at epoch {start_epoch}")
 
     np_rng = np.random.default_rng(seed)
-    [train_stack], n_train_batches = stacked_batch_pools(
+    [train_stack], n_train_batches, _ = stacked_batch_pools(
         splits["train"], spec, k=1, seed=seed, device=device)
     val_stack = stack_split(splits["val"], spec, device)
     test_stack = stack_split(splits["test"], spec, device)

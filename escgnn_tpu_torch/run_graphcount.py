@@ -13,6 +13,14 @@ JAX driver's.
 An epoch is one pool step (`train/loop.py`): on a CUDA device one train
 step captured into a CUDA graph and replayed over a device-resident
 stacked batch pool. The CPU runs only with `--device cpu`.
+
+`--compress_pools` stores the pools losslessly downcast
+(`data/compress.py`). `--mesh dp|ep|dp_ep|halo` trains in a parallel mode
+of `parallel/` on a world of one rank per device (`torchrun
+--nproc_per_node D`, or `--multihost` with `--coordinator host:port
+--num_processes P --process_id i`; a plain process is a world of one);
+under `--multihost --mesh dp` each process trains on its strided shard
+of the train split.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from escgnn_tpu_torch.data.counting import (
 )
 from escgnn_tpu_torch.data.prefetch import materialized_batches
 from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.parallel.mesh import rank_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
 from escgnn_tpu_torch.featurize.transform import featurize_many
@@ -46,7 +55,7 @@ from escgnn_tpu_torch.train.checkpoint import (
     load_model_tree,
     model_tree,
 )
-from escgnn_tpu_torch.train.fit import fit
+from escgnn_tpu_torch.train.fit import fit, halo_spec, make_run_mesh
 from escgnn_tpu_torch.train.loop import adam_with_plateau, l1_node_loss
 from escgnn_tpu_torch.utils.rundir import log_line, start_run
 
@@ -90,22 +99,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="membership-shuffled train batch pools on the card, "
                    "cycled across epochs")
     p.add_argument("--compress_pools", action="store_true",
-                   help="losslessly downcast pools (raises: not ported)")
+                   help="store the device-resident pools losslessly "
+                   "downcast (int8/int16), decoded inside the step")
     p.add_argument("--reshuffle_membership", action="store_true",
                    help="re-form train batches every epoch (prefetched, "
                    "eager steps)")
     p.add_argument("--mesh", default="none",
                    choices=["none", "dp", "ep", "halo", "dp_ep"],
-                   help="multi-device modes (raise: not ported)")
-    p.add_argument("--mesh_devices", type=int, default=0)
-    p.add_argument("--mesh_dp", type=int, default=2)
+                   help="train over the ranks of torch.distributed, one "
+                   "device each: 'dp' = data parallel, 'ep' = edge "
+                   "partition, 'halo' = receiver-range node+edge shards, "
+                   "'dp_ep' = 2-D data x edge mesh (--mesh_dp = data-axis "
+                   "size)")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="device count for --mesh: the world size, or 0")
+    p.add_argument("--mesh_dp", type=int, default=2,
+                   help="data-axis size of the 2-D --mesh dp_ep mesh")
     p.add_argument("--grad_clip", type=float, default=0.0,
                    help="global-norm gradient clipping (0 = off)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (raises: not ported)")
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="multi-process training: join the process group "
+                   "(--coordinator, or the torchrun environment); under "
+                   "--mesh dp each process trains on its strided shard of "
+                   "the train split. One process is unchanged.")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for --multihost")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="process count for --multihost")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank for --multihost")
     p.add_argument("--bn_eval", default="running",
                    choices=["batch", "running"],
                    help="eval-time BN statistics: 'running' re-estimates "
@@ -114,20 +136,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU runs only when named")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP queue, for a flag
-    whose module the port does not have yet."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the parallel modes are ROADMAP queue 10")
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: parallel/multihost.py is ROADMAP queue 10")
-    if args.compress_pools:
-        raise NotImplementedError(
-            "--compress_pools: data/compress.py is ROADMAP queue 9")
 
 
 def build_datasets(args) -> dict:
@@ -179,8 +187,9 @@ def main(argv=None) -> dict:
     """Train and evaluate; returns the run's numbers (best val/test MAE
     and one record per epoch) for callers such as the smoke run."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    if args.mesh == "halo" and args.model != "NestedGIN_eff":
+        raise ValueError("--mesh halo drives the NestedGIN_eff halo path")
     # f32 means f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -196,9 +205,29 @@ def main(argv=None) -> dict:
           f"mean={mean:.3f} std={std:.3f}")
 
     all_graphs = [g for s in splits.values() for g in s]
-    # uniform per-graph blocks + deduplicated ESC rows, the flagship layout
-    spec = BatchSpec.uniform(all_graphs, args.batch_size, enc_layout="dedup")
+    proc_count, proc_index = 1, 0
+    if args.multihost:
+        from escgnn_tpu_torch.parallel.multihost import init_multihost
+
+        proc_count, proc_index = init_multihost(
+            args.coordinator, args.num_processes, args.process_id, device)
+        print(f"multihost: process {proc_index}/{proc_count}, "
+              f"{proc_count} global devices")
+    mesh = make_run_mesh(args, device)
+    if args.mesh == "halo":
+        spec = halo_spec(all_graphs, args.batch_size, mesh.size())
+    else:
+        # uniform per-graph blocks + deduplicated ESC rows, the flagship
+        # layout
+        spec = BatchSpec.uniform(all_graphs, args.batch_size,
+                                 enc_layout="dedup")
     print(f"batch spec: {spec}")
+    if args.mesh == "dp" and proc_count > 1:
+        from escgnn_tpu_torch.parallel.multihost import process_shard
+
+        # this process's strided train shard (DistributedSampler role)
+        splits["train"] = process_shard(splits["train"], proc_index,
+                                        proc_count)
 
     model = build_model(args, spec, all_graphs[0].x.shape[1], device)
     if args.load_ckpt:
@@ -222,7 +251,8 @@ def main(argv=None) -> dict:
     log_path = os.path.join(res_dir, "log.txt")
     res = fit(args, model, opt, l1_node_loss, splits, spec, device,
               node_level=True, scale=std, log_path=log_path,
-              on_best=lambda epoch: ckpt.save(epoch, model_tree(model)))
+              on_best=lambda epoch: ckpt.save(epoch, model_tree(model)),
+              mesh=mesh)
     best_val, best_test = res["best_val"], res["best_test"]
     print(f"best val MAE {best_val:.5f}  test MAE {best_test:.5f} "
           f"(normalized: {best_test / std:.5f})")

@@ -17,6 +17,11 @@ An epoch is one pool step (`train/loop.py`): on a CUDA device one train
 step captured into a CUDA graph and replayed over a device-resident
 stacked batch pool, in an order drawn from the run's seed. The CPU runs
 only with `--device cpu`; without a card the default raises.
+
+`--compress_pools` stores the pools losslessly downcast
+(`data/compress.py`). `--mesh dp|ep|dp_ep|halo` trains in a parallel mode
+of `parallel/` on a world of one rank per device: a plain process is a
+world of one, `torchrun --nproc_per_node D` gives D ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from escgnn_tpu_torch.data.batching import BatchSpec
 from escgnn_tpu_torch.data.molecules import zinc_splits
 from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.parallel.mesh import rank_device
 from escgnn_tpu_torch.featurize.cache import cached_featurize
 from escgnn_tpu_torch.featurize.escgnn import EscConfig
 from escgnn_tpu_torch.featurize.transform import featurize_many
@@ -46,7 +52,7 @@ from escgnn_tpu_torch.train.copies import (
     copy_model,
     featurize_copies,
 )
-from escgnn_tpu_torch.train.fit import fit
+from escgnn_tpu_torch.train.fit import fit, halo_spec, make_run_mesh
 from escgnn_tpu_torch.train.loop import adam_with_plateau, l1_graph_loss
 from escgnn_tpu_torch.utils.rundir import start_run
 
@@ -82,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="membership-shuffled train batch pools on the card, "
                    "cycled across epochs")
     p.add_argument("--compress_pools", action="store_true",
-                   help="losslessly downcast pools (raises: not ported)")
+                   help="store the device-resident pools losslessly "
+                   "downcast (int8/int16), decoded inside the step")
     p.add_argument("--reshuffle_membership", action="store_true",
                    help="re-form train batches every epoch (prefetched, "
                    "eager steps)")
@@ -91,23 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval-time BN statistics (see train.loop.eval_step)")
     p.add_argument("--mesh", default="none",
                    choices=["none", "dp", "ep", "halo", "dp_ep"],
-                   help="multi-device modes (raise: not ported)")
-    p.add_argument("--mesh_devices", type=int, default=0)
-    p.add_argument("--mesh_dp", type=int, default=2)
+                   help="train over the ranks of torch.distributed, one "
+                   "device each: 'dp' = data parallel (one batch per rank "
+                   "per step, gradients and BN statistics averaged); 'ep' "
+                   "= edge partition (every rank on the same batch, its "
+                   "slice of the edges); 'halo' = receiver-range node+edge "
+                   "shards with a boundary all_gather per conv; 'dp_ep' = "
+                   "2-D data x edge mesh (--mesh_dp = data-axis size)")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="device count for --mesh: the world size, or 0")
+    p.add_argument("--mesh_dp", type=int, default=2,
+                   help="data-axis size of the 2-D --mesh dp_ep mesh")
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU runs only when named")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP queue, for a flag
-    whose module the port does not have yet."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the parallel modes are ROADMAP queue 10")
-    if args.compress_pools:
-        raise NotImplementedError(
-            "--compress_pools: data/compress.py is ROADMAP queue 9")
 
 
 def zinc_model_config(args) -> NestedGINEffConfig:
@@ -135,8 +139,13 @@ def main(argv=None) -> dict:
     """Train and evaluate; returns the run's numbers (best val/test MAE
     and one record per epoch) for callers such as the smoke run."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    if args.mesh == "halo" and args.model != "NestedGIN_eff":
+        raise ValueError("--mesh halo drives the NestedGIN_eff halo path")
+    if (args.mesh != "none" and args.model in COPY_MODELS
+            and args.copy_layout == "bucketed"):
+        raise ValueError("--copy_layout bucketed supports the pooled "
+                         "single-device path (use uniform with --mesh)")
     # f32 means f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,7 +190,11 @@ def main(argv=None) -> dict:
     print(f"data: {data_seconds:.1f}s mean={mean:.3f} std={std:.3f}")
 
     batch_transform = None  # set by --copy_layout bucketed
-    if args.model in COPY_MODELS:
+    mesh = make_run_mesh(args, device)
+    if args.mesh == "halo":
+        spec = halo_spec([g for s in splits.values() for g in s],
+                         args.batch_size, mesh.size())
+    elif args.model in COPY_MODELS:
         splits, spec, batch_transform = copy_layout_spec(
             splits, args.batch_size, args.copy_layout,
             args.reshuffle_membership)
@@ -205,7 +218,7 @@ def main(argv=None) -> dict:
     res = fit(args, model, opt, l1_graph_loss, splits, spec, device,
               node_level=False, scale=std,
               log_path=os.path.join(res_dir, "log.txt"),
-              batch_transform=batch_transform)
+              batch_transform=batch_transform, mesh=mesh)
     print(f"best val {res['best_val']:.5f} test {res['best_test']:.5f}")
     return dict(res, mean=mean, std=std, res_dir=res_dir, spec=spec,
                 data_seconds=data_seconds, featurize_seconds=featurize_seconds,

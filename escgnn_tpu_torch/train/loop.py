@@ -9,7 +9,9 @@ model in place:
     pool (`data/prefetch.py`) in a given order, the counterpart of the
     JAX package's one jitted `lax.scan` per epoch. Each step copies its
     batch into static buffers; on a CUDA device one train step over those
-    buffers is captured into a CUDA graph and replayed per batch;
+    buffers is captured into a CUDA graph and replayed per batch. A
+    compressed pool's decoder (`decode=`, `data/compress.py`) runs inside
+    that step, and in the pool eval, refresh and logits steps;
   * `eval_step` and `make_pool_eval_step`: (sum |err|, count) with the
     running BatchNorm statistics (`bn_mode="running"`) or the eval
     batch's own (`bn_mode="batch"`, running statistics left as they
@@ -319,14 +321,22 @@ def refresh_bn_stats(refresh_step, model: torch.nn.Module, batches) -> None:
         load_bn_stats(model, {k: v / n for k, v in acc.items()})
 
 
-def make_pool_refresh_step(model: torch.nn.Module):
+def _pool_batches(stacked: GraphBatch, decode=None):
+    """The batches of a stacked pool in order, each through `decode` (a
+    compressed pool's decoder, `data/compress.py`) when one is given."""
+    for i in range(pool_size(stacked)):
+        b = pool_entry(stacked, i)
+        yield b if decode is None else decode(b)
+
+
+def make_pool_refresh_step(model: torch.nn.Module, decode=None):
     """`refresh(stacked)`: `refresh_bn_stats` over every batch of a
-    stacked pool; eager and forward-only."""
+    stacked pool (each through `decode` when given); eager and
+    forward-only."""
     step = make_bn_refresh_step(model)
 
     def refresh(stacked: GraphBatch) -> None:
-        refresh_bn_stats(step, model, (pool_entry(stacked, i)
-                                       for i in range(pool_size(stacked))))
+        refresh_bn_stats(step, model, _pool_batches(stacked, decode))
 
     return refresh
 
@@ -365,15 +375,15 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
 
 def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
                         bn_mode: str = "running",
-                        segment_level: bool = False):
+                        segment_level: bool = False, decode=None):
     """`eval_pool(stacked) -> (sum |err|, count)` accumulated on the device
-    over every batch of a stacked pool; eager and forward-only."""
+    over every batch of a stacked pool (each through `decode` when
+    given); eager and forward-only."""
 
     def eval_pool(stacked: GraphBatch):
         total = count = None
-        for i in range(pool_size(stacked)):
-            s, c = eval_step(model, pool_entry(stacked, i), node_level,
-                             bn_mode, segment_level)
+        for b in _pool_batches(stacked, decode):
+            s, c = eval_step(model, b, node_level, bn_mode, segment_level)
             total = s if total is None else total + s
             count = c if count is None else count + c
         return total, count
@@ -410,19 +420,25 @@ def make_pergraph_correct_step(model: torch.nn.Module):
     return step
 
 
-def make_pool_logits_step(model: torch.nn.Module, node_level: bool = False):
+def make_pool_logits_step(model: torch.nn.Module, node_level: bool = False,
+                          decode=None):
     """`logits_pool(stacked) -> (logits (B, G, C), y (B, G, T),
     graph_mask (B, G))` over every batch of a stacked pool, with the
     running statistics, so a classification metric (ROC-AUC, AP,
     accuracy, macro-F1) is computed on the host from one read. With
     `node_level` the rows are nodes: (logits (B, N, C), y (B, N, 1),
-    node_mask (B, N)). Eager and forward-only, like the pool eval."""
+    node_mask (B, N)). Each batch goes through `decode` when given, and
+    so do y and the mask. Eager and forward-only, like the pool eval."""
 
     @torch.no_grad()
     def logits_pool(stacked: GraphBatch):
         with running_statistics(model):
-            outs = [model(pool_entry(stacked, i))
-                    for i in range(pool_size(stacked))]
+            outs = [model(b) for b in _pool_batches(stacked, decode)]
+        if decode is not None:
+            # y and the mask may be stored compressed too
+            stacked = decode(GraphBatch(y=stacked.y,
+                                        graph_mask=stacked.graph_mask,
+                                        node_mask=stacked.node_mask))
         mask = stacked.node_mask if node_level else stacked.graph_mask
         return torch.stack(outs), stacked.y, mask
 
@@ -441,7 +457,8 @@ def model_generators(model: torch.nn.Module) -> list:
 
 
 def make_pool_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
-                         loss_fn, pool_like: GraphBatch):
+                         loss_fn, pool_like: GraphBatch, decode=None,
+                         step_fn=None):
     """`pool_step(pool, order) -> losses`: one train step per index of
     `order` (host integers) on batch `pool[order[i]]` of a stacked pool,
     the counterpart of the JAX package's jitted scan over a pool. `losses`
@@ -449,20 +466,35 @@ def make_pool_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     caller's one wait per epoch.
 
     Each step copies its batch (fields and extras) into static buffers
-    shaped like one entry of `pool_like`; pools of other shapes are
-    refused. On the CPU the step over those buffers runs eagerly
-    (`train_step`). On a CUDA device it is captured into a CUDA graph
-    (forward, backward, clip and Adam) and replayed per batch, the copies
-    device to device. `opt` must then be capturable
-    (`adam_with_plateau(..., capturable=True)`); a capture failure
-    raises."""
+    shaped like one entry of `pool_like`, in the pool's dtypes; pools of
+    other shapes or dtypes are refused. `decode` (a compressed pool's
+    decoder, `data/compress.py`) casts the buffers back before the step
+    reads them. `step_fn(batch) -> loss` replaces the train step
+    (`train_step(model, opt, batch, loss_fn)`): the parallel steps of
+    `parallel/` pass theirs.
+
+    On the CPU the steps over those buffers run eagerly. On a CUDA device
+    one step, the decode included, is captured into a CUDA graph and
+    replayed per batch, the copies device to device; `opt` must then be
+    capturable (`adam_with_plateau(..., capturable=True)`), and a capture
+    failure raises."""
+    if step_fn is None:
+        def step_fn(batch):
+            return train_step(model, opt, batch, loss_fn)
+    if decode is not None:
+        inner = step_fn
+
+        def step_fn(batch):
+            return inner(decode(batch))
+
     if pool_like.graph_mask.device.type == "cpu":
-        return _EagerPoolStep(model, opt, loss_fn, pool_like)
-    return _GraphedPoolStep(model, opt, loss_fn, pool_like)
+        return _EagerPoolStep(step_fn, pool_like)
+    return _GraphedPoolStep(model, opt, step_fn, pool_like)
 
 
 class _PoolBuffers:
-    """Static batch buffers shaped like one entry of a stacked pool."""
+    """Static batch buffers shaped like one entry of a stacked pool, in
+    its dtypes (a compressed pool's stay compressed)."""
 
     def __init__(self, pool_like: GraphBatch):
         first = pool_entry(pool_like, 0)
@@ -495,19 +527,18 @@ def _layout(batch: GraphBatch) -> tuple:
 
 
 class _EagerPoolStep(_PoolBuffers):
-    """The pool step on the CPU: eager train steps over the buffers."""
+    """The pool step without a CUDA graph: eager steps over the buffers."""
 
-    def __init__(self, model, opt, loss_fn, pool_like: GraphBatch):
+    def __init__(self, step_fn, pool_like: GraphBatch):
         super().__init__(pool_like)
-        self.model, self.opt, self.loss_fn = model, opt, loss_fn
+        self.step_fn = step_fn
 
     def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
         self.check(pool)
         losses = []
         for j in order:
             self.load(pool, int(j))
-            losses.append(train_step(self.model, self.opt, self.static,
-                                     self.loss_fn))
+            losses.append(self.step_fn(self.static))
         return torch.stack(losses)
 
 
@@ -516,7 +547,7 @@ class _GraphedPoolStep(_PoolBuffers):
 
     WARMUP_STEPS = 3
 
-    def __init__(self, model, opt, loss_fn, pool_like: GraphBatch):
+    def __init__(self, model, opt, step_fn, pool_like: GraphBatch):
         if not all(g.get("capturable") for g in opt.param_groups):
             raise ValueError("the graphed pool step needs a capturable "
                              "optimizer: adam_with_plateau(..., "
@@ -531,7 +562,7 @@ class _GraphedPoolStep(_PoolBuffers):
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP_STEPS):
-                train_step(model, opt, self.static, loss_fn)
+                step_fn(self.static)
         torch.cuda.current_stream(self.device).wait_stream(side)
         _restore_in_place(model, opt, snapshot)
         # grads set to None: the captured backward allocates them from the
@@ -544,7 +575,7 @@ class _GraphedPoolStep(_PoolBuffers):
         for gen in model_generators(model):
             self.graph.register_generator_state(gen)
         with torch.cuda.graph(self.graph):
-            self._loss = train_step(model, opt, self.static, loss_fn)
+            self._loss = step_fn(self.static)
 
     def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
         self.check(pool)

@@ -1,7 +1,8 @@
 """chip_smoke.py's count of a kernel's launches in CUDA-graph replays:
 the kernel's nodes in the captured graph's DOT dump times the replays.
 The capture itself needs a card; the DOT reading and the wrapping of
-`torch.cuda.CUDAGraph` are checked here.
+`torch.cuda.CUDAGraph` are checked here, and so is `_hold_grads`, the
+rule the card's parallel-mode gradients are held by.
 """
 
 import os
@@ -78,3 +79,41 @@ def test_ledger_watch_puts_cuda_graph_back():
             assert (cls.capture_end, cls.replay) != before
             raise RuntimeError("inside")
     assert (cls.capture_end, cls.replay) == before
+
+
+def _grads():
+    g = torch.Generator().manual_seed(0)
+    return {"w": torch.randn(64, 64, generator=g),
+            "eps": torch.randn(4, generator=g) * 1e-3,
+            "bn_bias": torch.zeros(8)}
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("equal", True),
+    ("w_off_by_5e-3", True),     # within 1e-2 of its own norm
+    ("w_off_by_5e-2", False),
+    ("small_doubled", False),    # a gradient far under the largest
+    ("zero_noise_1e-6", True),   # the reference's is zero: rounding noise
+    ("zero_noise_1e-3", False),
+])
+def test_hold_grads_holds_each_gradient_to_its_own_norm(case, ok):
+    """Each gradient within `rel` of its own norm, however small next to
+    the largest; only a reference gradient that is zero to rounding is
+    exempt, and its counterpart must stay under `NOISE_GRAD` of the
+    largest norm."""
+    want = _grads()
+    got = {k: v.clone() for k, v in want.items()}
+    top = float(want["w"].norm())
+    if case.startswith("w_off_by_"):
+        got["w"] *= 1 + float(case.rsplit("_", 1)[1])
+    elif case == "small_doubled":
+        got["eps"] *= 2
+    elif case.startswith("zero_noise_"):
+        got["bn_bias"][0] = float(case.rsplit("_", 1)[1]) * top
+    if not ok:
+        with pytest.raises(AssertionError):
+            chip_smoke._hold_grads(case, got, want, rel=1e-2)
+        return
+    worst, n_zero, zero_max = chip_smoke._hold_grads(case, got, want,
+                                                     rel=1e-2)
+    assert worst <= 1e-2 and n_zero == 1 and zero_max < chip_smoke.NOISE_GRAD

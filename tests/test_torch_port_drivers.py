@@ -3,13 +3,15 @@ directories: `run_zinc`, `run_graphcount`, `run_zinc_cycle` and `run_qm9`
 at 40 graphs, hidden 16, 2 layers, batch 8, 2 epochs (the files they
 write, their epoch lines in the JAX drivers' format, the warm start and
 PPGN_eff); `run_sr`, `run_csl` and `run_exp` at the sizes named in their
-tests, their result lines in the JAX drivers' format; the unported
-flags; the default device."""
+tests, their result lines in the JAX drivers' format; the compressed
+pools, the parallel modes on a world of one rank and `--multihost`
+against the plain twin; the default device."""
 
 import json
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -189,17 +191,56 @@ def test_run_exp_twin(no_fork, capsys, trials):
         assert all(0.0 <= a <= 1.0 for a in r["accs"])
 
 
-@pytest.mark.parametrize("main,flags,queue", [
-    (run_zinc.main, ["--mesh", "dp"], "10"),
-    (run_zinc.main, ["--compress_pools"], "9"),
-    (run_graphcount.main, ["--mesh", "ep"], "10"),
-    (run_graphcount.main, ["--multihost"], "10"),
-    (run_graphcount.main, ["--compress_pools"], "9"),
+@pytest.mark.parametrize("main,flags,exact", [
+    (run_zinc.main, ["--compress_pools"], True),
+    (run_zinc.main, ["--mesh", "dp"], False),
+    (run_zinc.main, ["--mesh", "ep", "--mesh_devices", "1"], False),
+    (run_graphcount.main, ["--compress_pools"], True),
+    (run_graphcount.main, ["--mesh", "ep"], False),
+    (run_graphcount.main, ["--mesh", "dp_ep", "--mesh_dp", "1",
+                           "--compress_pools"], False),
+    (run_graphcount.main, ["--multihost"], True),
+    (run_graphcount.main, ["--multihost", "--mesh", "dp"], False),
 ])
-def test_unported_flags_raise_with_their_queue(tmp_path, main, flags, queue):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
-        main(flags + ["--res_dir", str(tmp_path / "res")])
-    assert not (tmp_path / "res").exists()
+def test_pool_and_mesh_flags_equal_the_plain_twin(tmp_path, capsys, main,
+                                                  flags, exact):
+    """The flags that ROADMAP queues 9.5 and 10 once refused, against the
+    plain twin on the same data: `--compress_pools` (the decode is exact:
+    equal losses and val MAE), `--mesh dp|ep|dp_ep` on a gloo world of one
+    rank (loss and val MAE rtol 1e-5: ep sums its edge slice with a
+    segment sum where the plain step uses the uniform one-hot products)
+    and `--multihost` without a coordinator (one process, unchanged)."""
+    plain, _ = _run(main, tmp_path, res="plain")
+    capsys.readouterr()
+    out, res_dir = _run(main, tmp_path, *flags)
+    _check_run(out, res_dir, capsys)
+    got = [(e["loss"], e["val_mae"]) for e in out["epochs"]]
+    want = [(e["loss"], e["val_mae"]) for e in plain["epochs"]]
+    if exact:
+        assert got == want
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("main", [run_zinc.main, run_graphcount.main])
+def test_mesh_halo_twin(tmp_path, capsys, main):
+    """`--mesh halo` (one rank): the width layout with its node budget a
+    multiple of the world, a halo pool of the 4 train batches, epoch lines
+    in the JAX format; a model other than NestedGIN_eff and a
+    `--mesh_devices` other than the world are refused."""
+    out, res_dir = _run(main, tmp_path, "--mesh", "halo")
+    printed = capsys.readouterr().out
+    assert "mesh: halo over 1 devices" in printed
+    assert "halo pool: 4 batches" in printed
+    assert out["spec"].enc_width > 0 and out["spec"].num_enc_rows == 0
+    for e in out["epochs"]:
+        assert np.isfinite([e["loss"], e["val_mae"]]).all()
+        assert e["steps"] == 4
+    other = "GNN" if main is run_zinc.main else "PPGN_eff"
+    with pytest.raises(ValueError, match="halo"):
+        _run(main, tmp_path, "--mesh", "halo", "--model", other, res="m")
+    with pytest.raises(ValueError, match="mesh_devices 2"):
+        _run(main, tmp_path, "--mesh", "dp", "--mesh_devices", "2", res="d")
 
 
 @pytest.mark.parametrize("main", [run_zinc.main, run_graphcount.main,

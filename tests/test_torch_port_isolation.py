@@ -87,7 +87,10 @@ def test_slice_modules_are_walked():
                 "featurize.cache", "train.checkpoint", "utils.rundir",
                 "run_zinc", "run_graphcount", "train.fit", "data.qm9",
                 "data.csl", "data.sr", "data.planar_sat", "run_zinc_cycle",
-                "run_qm9", "run_sr", "run_exp", "run_csl"):
+                "run_qm9", "run_sr", "run_exp", "run_csl", "data.compress",
+                "parallel", "parallel.mesh", "parallel.multihost",
+                "parallel.data_parallel", "parallel.edge_partition",
+                "parallel.halo"):
         assert f"escgnn_tpu_torch.{mod}" in names, mod
 
 

@@ -290,12 +290,22 @@ def test_loader_is_strict(variant):
 
 
 def test_unported_options_raise():
-    """The sharded modes raise; dropout > 0 and the QM9 fields (ported)
-    build, and `edge_float_attr` asks for the edge_attr width."""
+    """The sharded modes build (halo together with an edge or data axis
+    is refused), a sharded view shares the model's parameters; dropout >
+    0 and the QM9 fields build, and `edge_float_attr` asks for the
+    edge_attr width."""
     base = NestedGINEffConfig(hidden=8, num_layers=1)
-    for kw in (dict(halo_axis="x"), dict(edge_shard_axis="x")):
-        with pytest.raises(NotImplementedError):
-            NestedGINEff(dataclasses.replace(base, **kw), device="cpu")
+    for kw in (dict(halo_axis="x"), dict(edge_shard_axis="x"),
+               dict(edge_shard_axis="m", data_axis="d")):
+        m = NestedGINEff(dataclasses.replace(base, **kw), device="cpu")
+        assert all(getattr(m.cfg, k) == v for k, v in kw.items())
+    with pytest.raises(ValueError, match="halo_axis"):
+        NestedGINEff(dataclasses.replace(base, halo_axis="x",
+                                         edge_shard_axis="y"), device="cpu")
+    plain = NestedGINEff(base, device="cpu")
+    view = plain.sharded_view(edge_shard_axis="model")
+    assert view.cfg.edge_shard_axis == "model" and plain.cfg == base
+    assert all(a is b for a, b in zip(view.parameters(), plain.parameters()))
     dropped = NestedGINEff(dataclasses.replace(base, dropout=0.1),
                            device="cpu")
     assert dropped.generators() == [dropped.rng]

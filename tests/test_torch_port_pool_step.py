@@ -79,7 +79,8 @@ def setup():
     jspec = JBatchSpec.uniform(jg, 4, enc_layout="dedup")
     spec = BatchSpec.uniform(tg, 4, enc_layout="dedup")
     jpools, n, _ = j_stacked_pools(jg, jspec, k=1, seed=0)
-    pools, _ = stacked_batch_pools(tg, spec, k=1, seed=0, device="cpu")
+    pools, _, _ = stacked_batch_pools(tg, spec, k=1, seed=0,
+                                     device="cpu")
     jmodel = JNestedGINEff(JConfig(**CFG))
     first = jax.tree.map(lambda a: a[0], jpools[0])
     variables = jax.jit(jmodel.init)(jax.random.key(0), first)

@@ -104,10 +104,14 @@ def test_materialized_batches(graphs, pin_bytes):
 def test_stacked_batch_pools_equal_jax(graphs, capsys):
     """k=2, seed=3: both pools' stacked arrays and num_batches equal JAX's
     (the same permutations from the same seed); a max_total_bytes under
-    two pools caps k to 1, as JAX does."""
+    two pools caps k to 1, as JAX does; the decoder of uncompressed pools
+    is the identity, and `compress=True` gives pools the decoder restores
+    (tests/test_torch_port_compress.py holds them against JAX's)."""
     jg, tg, jspec, spec = graphs
     jpools, jn, _ = j_stacked_pools(jg, jspec, k=2, seed=3)
-    pools, n = stacked_batch_pools(tg, spec, k=2, seed=3, device="cpu")
+    pools, n, decode = stacked_batch_pools(tg, spec, k=2, seed=3,
+                                           device="cpu")
+    assert decode(pools[0]) is pools[0]
     assert n == jn == 3 and len(pools) == len(jpools) == 2
     for p, jp in zip(pools, jpools):
         _assert_batch_equal(p.tensors(), _jax_fields(jp))
@@ -115,7 +119,7 @@ def test_stacked_batch_pools_equal_jax(graphs, capsys):
         assert p.enc_countmat is not None and p.pos is None
     per_pool = sum(t.numel() * t.element_size()
                    for t in pools[0].tensors().values())
-    capped, n = stacked_batch_pools(tg, spec, k=4, seed=3,
+    capped, n, _ = stacked_batch_pools(tg, spec, k=4, seed=3,
                                     max_total_bytes=per_pool + 1,
                                     device="cpu")
     jcapped, _, _ = j_stacked_pools(jg, jspec, k=4, seed=3,
@@ -125,8 +129,10 @@ def test_stacked_batch_pools_equal_jax(graphs, capsys):
     entry = pool_entry(pools[1], 2)
     _assert_batch_equal(entry.tensors(),
                         {k: v[2] for k, v in _jax_fields(jpools[1]).items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9"):
-        stacked_batch_pools(tg, spec, compress=True, device="cpu")
+    cpools, cn, cdecode = stacked_batch_pools(tg, spec, k=2, seed=3,
+                                              compress=True, device="cpu")
+    assert cn == n and len(cpools) == 2
+    _assert_batch_equal(cdecode(cpools[1]).tensors(), _jax_fields(jpools[1]))
 
 
 def test_stack_split_equals_jax(graphs):

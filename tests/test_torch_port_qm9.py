@@ -287,7 +287,8 @@ def test_pool_epoch_with_extras_matches_jax(qm9_model):
     tg, jg = s["tg"], s["jg"]
     spec = BatchSpec.uniform(tg, 4, enc_layout="dedup")
     jspec = JBatchSpec.uniform(jg, 4, enc_layout="dedup")
-    pools, n = stacked_batch_pools(tg, spec, k=1, seed=0, device="cpu")
+    pools, n, _ = stacked_batch_pools(tg, spec, k=1, seed=0,
+                                     device="cpu")
     jpools, jn, _ = j_stacked_pools(jg, jspec, k=1, seed=0)
     assert n == jn == 2
     np.testing.assert_array_equal(pools[0].extras["node_type"].numpy(),
