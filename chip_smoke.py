@@ -84,7 +84,21 @@ against its plain PyTorch version on the card, then drives these paths:
     set cut to 20 epochs, then `--model IDGNN` and `--nested` with 3
     folds; a fold's graphed and eager ms/step) and `[run_tu_cycles]` (the
     `class`, `reg --multi_layer` and `reg_gc` cycle trainers, and `class`
-    on the synthetic Cora). No port kernel lies on these paths.
+    on the synthetic Cora). No port kernel lies on these paths;
+  * slice 13: `[packed]` (the ZINC twin's 800 training molecules
+    packed by `packed_batch_iterator`, dedup and flat, against
+    `batch_iterator`'s count; one graphed epoch over the packed dedup
+    pool, K1 per step),
+    `[halo_toy]` (the halo module's toy GINE stack: graphed on the NCCL
+    group of one, then on the two gloo ranks of `[mesh_2rank]`, against
+    its single-device reference), `[flat]` (the flagship NestedGINEff at
+    the ZINC twin's f32 widths on the flagship batch, and the bench's
+    GPS ZINC step, each under the flat and the dedup layout: one step
+    held flat to dedup, then a graphed epoch of each, ms/step side by
+    side), `[flat_bf16_bwd]` (the bf16 table backward against f32),
+    `[pool_zoo]` (TopKPool -> DiffPool -> graclus pooling, card against
+    CPU) and `[ogb_flag]` (OgbGNN's FLAG perturbation: zeros equal none
+    bit for bit, a random one gives a gradient).
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -1010,7 +1024,8 @@ def run_zinc_twin(work: str, smi: str):
 
 def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
                      kernel=("k1", "segsum_kernel"), rel_tol=(1e-5, 1e-3),
-                     batch_transform=None, report=None, per_step: int = 1):
+                     batch_transform=None, report=None, per_step: int = 1,
+                     pool=None):
     """`[pool_graph]`: from one state snapshot of `model`, one epoch of a
     twin's train pool (its graphs, spec and model at full width) through
     the graphed pool step and one through eager steps. The first step's
@@ -1028,10 +1043,16 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     of the graphed epoch; returns the kernel's launches in the graphed
     epoch.
     `batch_transform` applies to every pooled batch (the bucketed copy
-    layout); `report`, a dict, receives the printed numbers."""
+    layout); `report`, a dict, receives the printed numbers; `pool`, a
+    stacked pool on the card, is taken instead of one built from `train`
+    and `spec` (its steps walked in a permuted order all the same)."""
     import numpy as np
 
-    from escgnn_tpu_torch.data.prefetch import pool_entry, stacked_batch_pools
+    from escgnn_tpu_torch.data.prefetch import (
+        pool_entry,
+        pool_size,
+        stacked_batch_pools,
+    )
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
         make_pool_train_step,
@@ -1039,12 +1060,15 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     )
 
     t0 = time.perf_counter()
-    pools, steps, _ = stacked_batch_pools(train, spec, k=1, seed=0,
-                                          device=dev,
-                                          batch_transform=batch_transform)
+    if pool is None:
+        pools, steps, _ = stacked_batch_pools(
+            train, spec, k=1, seed=0, device=dev,
+            batch_transform=batch_transform)
+        pool = pools[0]
+    else:
+        steps = pool_size(pool)
     torch.cuda.synchronize()
     pool_build_s = time.perf_counter() - t0
-    pool = pools[0]
     order = np.random.default_rng(0).permutation(steps)
     init = copy.deepcopy(model.state_dict())
 
@@ -3491,6 +3515,8 @@ def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
          step_loss=hloss, plain_step_loss=loss, max_grad_rel_err=gerr,
          zero_grads=n_zero, zero_grads_max_norm_rel=zero_max,
          kernels="none (width layout)", card=json.dumps(smi), ok=True)
+    # slice 13: the halo module's toy GINE stack on the same batch
+    inputs.update(run_halo_toy_world1(inputs["C"], mesh, dev, smi))
 
     t0 = time.perf_counter()
     multi = rg.main(["--num_graphs", "400", "--epochs", "3", "--data_dir",
@@ -3515,9 +3541,12 @@ def run_mesh_2rank(work: str, smi: str, dev, inputs: dict) -> dict:
     the ZINC twin's widths and batches of 128: the ep step (each rank half
     the edges of batch A = B0, its own sorted view, K1 on it) and the
     dp_ep step (2 data shards of 64 graphs) against the plain
-    single-device step on A; the dp step (rank r on batch B_r) against the mean of the two
-    batches' gradients in this process; the two-shard halo step on the
-    width batch C against the single-device step. Loss rtol 1e-5; each
+    single-device step on A; the dp step (rank r on batch B_r) against
+    the mean of the two batches' gradients in this process; the
+    two-shard halo step on the width batch C against the single-device
+    step; `[halo_toy]`'s `TOY_STEPS` toy stack steps on C over two halo
+    shards against its single-device reference (`_hold_toy`). Loss rtol
+    1e-5; each
     gradient within 1e-3 of its own norm for dp and 1e-2 for the modes
     that split a sum over the ranks (`_hold_grads`), on both ranks.
     Returns K1's launches on rank 0 per mode."""
@@ -3543,11 +3572,10 @@ def run_mesh_2rank(work: str, smi: str, dev, inputs: dict) -> dict:
     refs["halo"] = _plain_grads(_zinc_model(dev), inputs["C"].to(dev),
                                 l1_graph_loss)
 
-    port = _free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-         str(port), out_dir], stdout=subprocess.PIPE,
+         out_dir], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
     logs = []
     try:
@@ -3591,26 +3619,50 @@ def run_mesh_2rank(work: str, smi: str, dev, inputs: dict) -> dict:
              zero_grads_max_norm_rel=max(zeros),
              k1_launches_rank0=ranks[0][mode][2],
              card=json.dumps(smi), ok=True)
+    worst = max(_hold_toy(f"2-rank halo toy rank {r}", *res["toy"],
+                          inputs["toy_ref"])
+                for r, res in enumerate(ranks))
+    _log("halo_toy", backend="gloo", world=2, device="cuda:0 shared",
+         graphed=False, steps=TOY_STEPS,
+         losses=json.dumps(ranks[0]["toy"][0]),
+         reference_losses=json.dumps(inputs["toy_ref"][0]),
+         max_param_rel=worst, card=json.dumps(smi), ok=True)
     _log("mesh_2rank", seconds=round(seconds, 3),
          rank_seconds=json.dumps([res["seconds"] for res in ranks]),
          card=json.dumps(smi), ok=True)
     return k1
 
 
-def _free_port() -> int:
-    import socket
+def _rank_store(rank: int, out_dir: str):
+    """The 2-rank group's TCP store, on a port rank 0 binds itself and
+    publishes in `<out_dir>/port` (no other process can take it between
+    its choice and its bind)."""
+    import torch.distributed as dist
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    path = os.path.join(out_dir, "port")
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, 2, True,
+                              wait_for_workers=False)
+        with open(path + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(path + ".tmp", path)
+        return store
+    deadline = time.time() + 120
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"rank 0 published no port in {path}")
+        time.sleep(0.05)
+    with open(path) as f:
+        return dist.TCPStore("localhost", int(f.read()), 2, False)
 
 
-def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
-    """One rank of `[mesh_2rank]` (`chip_smoke.py --mesh-rank R PORT
-    DIR`): joins the gloo group of two on localhost, runs the ep, dp_ep,
-    dp and halo steps on the device DIR/in.pt names (the card the parent
-    runs on) and writes (loss, gradients, K1 launches) per mode to
-    DIR/rank<R>.pt."""
+def mesh_rank_main(rank: int, out_dir: str) -> int:
+    """One rank of `[mesh_2rank]` (`chip_smoke.py --mesh-rank R DIR`):
+    joins the gloo group of two on localhost (`_rank_store`), runs the
+    ep, dp_ep, dp and halo steps and the halo toy stack's steps on the
+    device DIR/in.pt names (the card the parent runs on) and writes
+    (loss, gradients, K1 launches) per mode and the toy's (losses,
+    parameters) to DIR/rank<R>.pt."""
     import torch.distributed as dist
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3621,6 +3673,7 @@ def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
     from escgnn_tpu_torch.parallel import halo
     from escgnn_tpu_torch.parallel.mesh import make_mesh
     from escgnn_tpu_torch.train.loop import l1_graph_loss
+    from escgnn_tpu_torch.weights import halo_params
 
     t0 = time.perf_counter()
     inputs = torch.load(os.path.join(out_dir, "in.pt"), weights_only=False)
@@ -3629,7 +3682,7 @@ def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
         torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", store=_rank_store(rank, out_dir),
                             world_size=2, rank=rank)
     res = {}
 
@@ -3653,6 +3706,15 @@ def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
         m, o, "model", graph_loss_fn=l1_graph_loss),
         halo.halo_shard(halo.build_halo_batch(inputs["C"], plan),
                         rank).to(dev), mesh)
+    toy, losses = inputs["toy"], []
+    step = halo.make_halo_train_step(mesh, TOY_LAYERS, TOY_LR)
+    plan_dev = halo.shard_plan(plan, mesh, "model", device=dev)
+    params = halo_params(toy["params"], dev)
+    for _ in range(TOY_STEPS):
+        params, loss = step(params, *_toy_shard(plan, toy, rank, dev),
+                            plan_dev)
+        losses.append(float(loss))
+    res["toy"] = (losses, {k: v.cpu() for k, v in params.items()})
     mesh = make_mesh(0, ("data", "model"), (2, 1), device=dev)
     run("dp_ep", lambda m, o, mesh: ep.make_dp_ep_train_step(
         m, o, l1_graph_loss),
@@ -3666,6 +3728,452 @@ def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+# slice 13: the flat and packed layouts, the pooling zoo, the halo toy
+# stack and FLAG's input hook
+FLAT_REPS = 4  # copies of a bench batch in a [flat] pool, one step each
+TOY_FEATURES = 64  # the halo toy stack's width
+TOY_LAYERS = 2
+TOY_STEPS = 3
+TOY_LR = 1e-2
+
+
+def _flat_pair(label, make_model, graphs, lr, dev, smi):
+    """`[flat]` for one model: its graphs batched whole under the uniform
+    flat and the uniform dedup layouts; one train step of each from the
+    same weights (loss at rel 1e-5; the z table's gradient within 1e-3 of
+    its norm: only the order of the sums differs, through five BatchNorms
+    over 12288 edges or 3712 weighted rows; the width layout's gradient
+    is printed beside it as the control), then one graphed pool epoch of
+    each over `FLAT_REPS` copies of the batch
+    (`check_pool_graph`, its graphed and eager losses held as there; K1
+    once per layer per step on the dedup epoch, none on the flat one).
+    Returns (the flat step's gradients, the flat batch, K1's launches in
+    the dedup epoch)."""
+    import numpy as np
+
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    specs = {lay: BatchSpec.uniform(graphs, len(graphs), enc_layout=lay)
+             for lay in ("flat", "dedup", "width")}
+    batches = {lay: pad_and_batch(graphs, sp, device=dev)
+               for lay, sp in specs.items()}
+    model = make_model()
+    init = copy.deepcopy(model.state_dict())
+    step = {}
+    for lay, b in batches.items():
+        model.load_state_dict(init)
+        step[lay] = _plain_grads(model, b, l1_graph_loss)
+    _hold_losses(f"{label} flat step", [step["flat"][0]], [step["dedup"][0]])
+    tables = [k for k in step["dedup"][1] if k.endswith("z_initial")]
+
+    def table_rel(lay):
+        return max(float((step[lay][1][k] - step["dedup"][1][k]).norm())
+                   / float(step["dedup"][1][k].norm()) for k in tables)
+
+    if not tables or table_rel("flat") > 1e-3:
+        raise AssertionError(f"{label}: flat z table gradients {tables} "
+                             f"{table_rel('flat')} of the dedup ones' norm "
+                             f"(width: {table_rel('width')})")
+    K = specs["flat"].num_enc_nnz
+    entries = sum(int(np.diff(g.enc_offsets).sum()) for g in graphs)
+    reports, k1 = {}, 0
+    layers = model.cfg.num_layers
+    for lay in ("flat", "dedup"):
+        model.load_state_dict(init)
+        reports[lay] = {}
+        n = check_pool_graph(
+            f"{label}_{lay}", model, l1_graph_loss, graphs * FLAT_REPS,
+            specs[lay], lr, dev, report=reports[lay], per_step=layers
+            if label == "gps" else 1,
+            kernel=None if lay == "flat" else ("k1", "segsum_kernel"))
+        if lay == "dedup":
+            k1 = n
+    r_f, r_d = reports["flat"], reports["dedup"]
+    _log("flat", model=label, graphs=len(graphs), E=specs["flat"].num_edges,
+         K_budget=K, K_entries=entries, R=specs["dedup"].num_enc_rows,
+         first_loss_flat=step["flat"][0], first_loss_dedup=step["dedup"][0],
+         first_loss_rel=abs(step["flat"][0] - step["dedup"][0])
+         / abs(step["dedup"][0]), table_grad_rel=table_rel("flat"),
+         width_table_grad_rel=table_rel("width"),
+         width_loss_rel=abs(step["width"][0] - step["dedup"][0])
+         / abs(step["dedup"][0]),
+         flat_graphed_ms_per_step=r_f["graphed_ms_per_step"],
+         dedup_graphed_ms_per_step=r_d["graphed_ms_per_step"],
+         flat_busy_ms_per_step=r_f["graphed_busy_ms_per_step"],
+         dedup_busy_ms_per_step=r_d["graphed_busy_ms_per_step"],
+         flat_idle_share=r_f["graphed_idle_share"],
+         dedup_idle_share=r_d["graphed_idle_share"],
+         flat_over_dedup_graphed=r_f["graphed_ms_per_step"]
+         / r_d["graphed_ms_per_step"],
+         flat_peak_mem_gb=r_f["graphed_peak_mem_gb"],
+         dedup_peak_mem_gb=r_d["graphed_peak_mem_gb"],
+         k1_dedup_graphed_launches=k1, card=json.dumps(smi), ok=True)
+    return step["flat"][1], batches["flat"], k1
+
+
+def run_flat(graphs, dev, smi) -> dict:
+    """`[flat]`: the flagship NestedGINEff at the ZINC twin's f32 widths
+    (256 x 5) on the flagship's 128 molecules, and the bench's GPS ZINC
+    step (32 graphs, 64 x 4), each under the flat and the dedup layout
+    (`_flat_pair`). `[flat_bf16_bwd]`: one flagship flat step with
+    `set_backward_matmul_dtype(torch.bfloat16)`, its table gradient held
+    to the f32 one within 1e-2 of its norm (bf16 keeps 8 bits of each
+    gradient entry) and not equal to it; f32 set back. Returns K1's
+    launches in the two dedup epochs."""
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.models.gps import GPSModel
+    from escgnn_tpu_torch.ops import zemb
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    args = run_zinc.build_parser().parse_args([])
+    k1 = {}
+    flat_grads, flat_batch, k1["flat_flagship_dedup"] = _flat_pair(
+        "flagship", lambda: _zinc_model(dev), graphs, args.lr, dev, smi)
+    _, _, k1["flat_gps_dedup"] = _flat_pair(
+        "gps", lambda: GPSModel(gps_bench_config("zinc"), device=dev,
+                                generator=torch.Generator().manual_seed(0)),
+        bench_zinc_graphs(), LR, dev, smi)
+
+    zemb.set_backward_matmul_dtype(torch.bfloat16)
+    try:
+        _, bf16 = _plain_grads(_zinc_model(dev), flat_batch, l1_graph_loss)
+    finally:
+        zemb.set_backward_matmul_dtype(torch.float32)
+    want, got = flat_grads["z_initial"], bf16["z_initial"]
+    rel = float((got - want).norm()) / float(want.norm())
+    if not 0.0 < rel <= 1e-2:
+        raise AssertionError(f"bf16 table backward: {rel} of the f32 "
+                             f"gradient's norm (want in (0, 1e-2])")
+    if zemb._BWD_MATMUL_DTYPE != torch.float32:
+        raise AssertionError("the backward dtype was not set back to f32")
+    _log("flat_bf16_bwd", table_grad_rel=rel, bound=1e-2,
+         restored="float32", card=json.dumps(smi), ok=True)
+    return k1
+
+
+def run_packed(work: str, zinc_res, dev, smi) -> int:
+    """`[packed]`: the ZINC twin's training split (800 of its 1000
+    molecules) under `BatchSpec.from_graphs` at its batch of 128, dedup
+    and flat, batched by `packed_batch_iterator` and by `batch_iterator`:
+    the packed batches are no more and hold every graph once. Then one
+    graphed pool epoch over the packed dedup pool at the twin's widths
+    (`check_pool_graph`, graphed against eager, K1 once per step).
+    Returns K1's launches in that epoch."""
+    from escgnn_tpu_torch import run_zinc
+    from escgnn_tpu_torch.data.batching import (
+        BatchSpec,
+        batch_from_arrays,
+        batch_iterator,
+        packed_batch_iterator,
+    )
+    from escgnn_tpu_torch.data.prefetch import stack_batches
+    from escgnn_tpu_torch.train.loop import l1_graph_loss
+
+    args = run_zinc.build_parser().parse_args([])
+    train = _twin_train(work, "run_zinc", zinc_res)
+    counts, pool = {}, None
+    for lay in ("dedup", "flat"):
+        spec = BatchSpec.from_graphs(train, args.batch_size, enc_layout=lay)
+        t0 = time.perf_counter()
+        packed = list(packed_batch_iterator(train, spec, device=None))
+        pack_s = time.perf_counter() - t0
+        fixed = sum(1 for _ in batch_iterator(train, spec, device=None))
+        graphs = sum(int(a["graph_mask"].sum()) for a in packed)
+        edges = sum(int(a["edge_mask"].sum()) for a in packed)
+        if len(packed) > fixed or graphs != len(train) or edges != sum(
+                g.num_edges for g in train):
+            raise AssertionError(f"packed {lay}: {len(packed)} batches of "
+                                 f"{graphs} graphs / {edges} edges against "
+                                 f"{fixed} fixed batches of {len(train)}")
+        counts[lay] = (len(packed), fixed, round(pack_s, 3))
+        if lay == "dedup":
+            pool = stack_batches([batch_from_arrays(a, spec, "cpu")
+                                  for a in packed]).to(dev)
+    report = {}
+    k1 = check_pool_graph("packed_dedup", _zinc_model(dev), l1_graph_loss,
+                          None, None, args.lr, dev, report=report, pool=pool)
+    _log("packed", graphs=len(train), batch=args.batch_size,
+         dedup_packed_batches=counts["dedup"][0],
+         dedup_fixed_batches=counts["dedup"][1],
+         flat_packed_batches=counts["flat"][0],
+         flat_fixed_batches=counts["flat"][1],
+         pack_s=json.dumps({k: v[2] for k, v in counts.items()}),
+         graphed_ms_per_step=report["graphed_ms_per_step"],
+         busy_ms_per_step=report["graphed_busy_ms_per_step"],
+         idle_share=report["graphed_idle_share"],
+         losses=report["graphed_losses"], k1_graphed_launches=k1,
+         card=json.dumps(smi), ok=True)
+    return k1
+
+
+def _pool_zoo_forward(x, batch, topk, assign, max_nodes):
+    """TopKPool -> DiffPool over the kept nodes -> graclus cluster pooling
+    of the gated rows; returns the scalar that sums every output."""
+    from escgnn_tpu_torch.models import pooling
+
+    h, keep = topk(x, batch, batch.node_mask)
+    kept = dataclasses.replace(batch, node_mask=keep)
+    dense, mask = pooling.to_dense_batch(h, kept, max_nodes)
+    adj = pooling.batch_dense_adj(batch, max_nodes)
+    x2, a2, link, ent = pooling.dense_diff_pool(dense, adj, assign(dense),
+                                                mask)
+    # x2 and a2 weighted by fixed ramps: their plain sums are constant in
+    # the assignment (each node's rows of S sum to 1), so their gradients
+    # would be two large terms that cancel
+    ei = torch.stack([batch.senders, batch.receivers]).cpu().numpy()
+    ei = ei[:, batch.edge_mask.cpu().numpy()]
+    cl = torch.from_numpy(pooling.graclus_cluster(ei, batch.num_nodes,
+                                                  seed=0)).to(x.device)
+    C = int(cl.max()) + 1
+    out = 0.0
+    for how in ("avg", "max", "sum"):
+        out = out + pooling.pool_by_cluster(h, cl, C, mask=keep,
+                                            how=how).sum()
+    return (_ramp(x2) * x2).sum() + (_ramp(a2) * a2).sum() + link + ent + out
+
+
+def _ramp(t):
+    """Fixed weights in [-1, 1] of `t`'s shape (no random draw)."""
+    return torch.sin(torch.arange(t.numel(), dtype=t.dtype,
+                                  device=t.device)).reshape(t.shape)
+
+
+def run_pool_zoo(dev, smi) -> None:
+    """`[pool_zoo]`: the TU pooling zoo on 64 graphs of the synthetic TU
+    set (degree one-hot features): a forward and backward of TopKPool
+    (ratio 0.5) -> dense_diff_pool (4 clusters from a linear assignment)
+    -> pool_by_cluster on graclus clusters, on the card against the same
+    modules on the CPU: the output at rel 1e-4, each gradient within 1e-4
+    of its norm."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.tu import synthetic_tu
+    from escgnn_tpu_torch.models.layers import TorchDense
+    from escgnn_tpu_torch.models.pooling import TopKPool
+
+    graphs = synthetic_tu(64, seed=0)
+    spec = BatchSpec.from_graphs(graphs, 64)
+    M = spec.max_nodes_per_graph
+    F = graphs[0].x.shape[1]
+    res = {}
+    for d in ("cpu", dev):
+        gen = torch.Generator().manual_seed(0)
+        topk = TopKPool(F, ratio=0.5, generator=gen).to(d)
+        assign = TorchDense(F, 4, generator=gen).to(d)
+        b = pad_and_batch(graphs, spec, device=d)
+        x = b.x.float().requires_grad_(True)
+        out = _pool_zoo_forward(x, b, topk, assign, M)
+        out.backward()
+        res[str(d)] = (float(out.detach()), {"x": x.grad.cpu(),
+                                    "topk": topk.weight.grad.cpu(),
+                                    "assign": assign.weight.grad.cpu()})
+    want, got = res["cpu"], res[str(dev)]
+    if abs(got[0] - want[0]) > 1e-4 * abs(want[0]):
+        raise AssertionError(f"pool zoo: card {got[0]} != CPU {want[0]}")
+    worst = 0.0
+    for k, w in want[1].items():
+        rel = float((got[1][k] - w).norm()) / float(w.norm())
+        worst = max(worst, rel)
+        if not float(w.norm()) > 0 or rel > 1e-4:
+            raise AssertionError(f"pool zoo {k}: gradient {rel} of its "
+                                 f"norm {float(w.norm())}")
+    _log("pool_zoo", graphs=len(graphs), N=spec.num_nodes, M=M, features=F,
+         clusters=4, out_card=got[0], out_cpu=want[0],
+         out_rel=abs(got[0] - want[0]) / abs(want[0]),
+         max_grad_rel=worst, card=json.dumps(smi), ok=True)
+
+
+def _toy_inputs(batch) -> dict:
+    """The halo toy stack's numpy-seeded inputs on a width batch: x, y
+    (N, F), edge payload (E, F), its node mask and {w_i, b_i}."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    N, E, F = batch.num_nodes, batch.num_edges, TOY_FEATURES
+    params = {}
+    for i in range(TOY_LAYERS):
+        params[f"w_{i}"] = (0.5 * rng.normal(size=(F, F)) / np.sqrt(F)
+                            ).astype(np.float32)
+        params[f"b_{i}"] = (0.1 * rng.normal(size=F)).astype(np.float32)
+    return dict(x=rng.normal(size=(N, F)).astype(np.float32),
+                y=rng.normal(size=(N, F)).astype(np.float32),
+                edge_emb=rng.normal(size=(E, F)).astype(np.float32),
+                node_mask=batch.node_mask.numpy(), params=params)
+
+
+def _toy_reference(batch, toy, dev):
+    """The toy stack's `TOY_STEPS` SGD steps on one device, written out:
+    h <- relu((h + sum over real edges of relu(h[s] + e)) @ w + b), the
+    masked mean square over nodes. Returns (losses, parameters)."""
+    s, r = batch.senders.long().to(dev), batch.receivers.long().to(dev)
+    em = batch.edge_mask.to(dev)
+    x, y, e = (torch.from_numpy(toy[k]).to(dev)
+               for k in ("x", "y", "edge_emb"))
+    nm = torch.from_numpy(toy["node_mask"]).to(dev)
+    p = {k: torch.from_numpy(v).to(dev) for k, v in toy["params"].items()}
+    losses = []
+    for _ in range(TOY_STEPS):
+        p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        h = x
+        for i in range(TOY_LAYERS):
+            msg = torch.relu(h[s] + e) * em[:, None]
+            agg = torch.zeros_like(h).index_add_(0, r, msg)
+            h = torch.relu((h + agg) @ p[f"w_{i}"] + p[f"b_{i}"])
+        err = (h - y) * nm[:, None]
+        loss = (err * err).sum() / nm.sum().clamp_min(1)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        p = {k: (v - TOY_LR * g).detach() for (k, v), g in
+             zip(p.items(), grads)}
+        losses.append(float(loss))
+    return losses, {k: v.cpu() for k, v in p.items()}
+
+
+def _toy_shard(plan, toy, d, dev):
+    """Rank d's toy inputs: its node rows and its edge payload shard."""
+    from escgnn_tpu_torch.parallel import halo
+
+    nps = plan.nodes_per_shard
+    rows = slice(d * nps, (d + 1) * nps)
+    return (torch.from_numpy(toy["x"][rows]).to(dev),
+            torch.from_numpy(halo.scatter_edge_payload(
+                plan, toy["edge_emb"])[d]).to(dev),
+            torch.from_numpy(toy["y"][rows]).to(dev),
+            torch.from_numpy(toy["node_mask"][rows]).to(dev))
+
+
+def _hold_toy(name, losses, params, ref) -> float:
+    """The toy's losses (first rtol 1e-5, later 1e-3) and each final
+    parameter's change from its start within 1e-2 of the reference
+    change's norm (the limits `[mesh_2rank]` holds split sums to)."""
+    want_losses, want_params, start = ref
+    _hold_losses(name, losses, want_losses)
+    worst = 0.0
+    for k, w in want_params.items():
+        dw = w - start[k]
+        rel = float((params[k] - w).norm()) / float(dw.norm())
+        worst = max(worst, rel)
+        if rel > 1e-2:
+            raise AssertionError(f"{name} {k}: {rel} of the update's norm")
+    return worst
+
+
+def run_halo_toy_world1(batch, mesh, dev, smi) -> dict:
+    """`[halo_toy]` on the NCCL group of one rank: `make_halo_train_step`
+    (the toy GINE stack, `TOY_LAYERS` x `TOY_FEATURES`) on the width
+    batch `batch`, captured once into a CUDA graph with its collectives
+    and its parameter update, replayed `TOY_STEPS` times, held to the
+    single-device reference (`_hold_toy`). Returns the inputs and the
+    reference for `[mesh_2rank]`."""
+    from escgnn_tpu_torch.parallel import halo
+    from escgnn_tpu_torch.weights import halo_params
+
+    toy = _toy_inputs(batch)
+    ref = _toy_reference(batch, toy, dev)
+    ref = (ref[0], ref[1], {k: torch.from_numpy(v)
+                            for k, v in toy["params"].items()})
+    plan = halo.plan_halo_sharding(batch, 1)
+    plan_dev = halo.shard_plan(plan, mesh, "model", device=dev)
+    args = _toy_shard(plan, toy, 0, dev)
+    step = halo.make_halo_train_step(mesh, TOY_LAYERS, TOY_LR)
+    params = halo_params(toy["params"], dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(params, *args, plan_dev)  # warm-up, result dropped
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new, loss = step(params, *args, plan_dev)
+        for k, v in new.items():
+            params[k].copy_(v)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TOY_STEPS):
+        graph.replay()
+        losses.append(loss.clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TOY_STEPS
+    losses = [float(v) for v in losses]
+    worst = _hold_toy("halo toy world 1", losses,
+                      {k: v.cpu() for k, v in params.items()}, ref)
+    _log("halo_toy", backend="nccl", world=1, graphed=True,
+         steps=TOY_STEPS, N=batch.num_nodes, E=batch.num_edges,
+         features=TOY_FEATURES, layers=TOY_LAYERS,
+         losses=json.dumps(losses), reference_losses=json.dumps(ref[0]),
+         max_param_rel=worst, graphed_ms_per_step=ms,
+         card=json.dumps(smi), ok=True)
+    return dict(toy=toy, toy_ref=ref)
+
+
+def run_ogb_flag(dev, smi) -> None:
+    """`[ogb_flag]`: the bench's OgbGNN (6 x 300, virtual node, dropout 0,
+    32 molhiv-shaped graphs, uniform + dedup) and FLAG's input hook: one
+    Adam step with `perturb` zeros equals the step without it bit for bit
+    (loss and every parameter; the step is first checked to repeat bit
+    for bit from one state); one step with a N(0, 1e-2) perturb is
+    finite and its perturb gradient is not zero."""
+    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
+    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+    from escgnn_tpu_torch.models.ogb_gnn import OgbGNN, OgbGNNConfig
+    from escgnn_tpu_torch.train.loop import adam_with_plateau, bce_graph_loss
+
+    graphs = featurize_many(synthetic_ogb_mol(32, seed=0, num_tasks=1),
+                            EscConfig(h=4, use_rd=True, self_loop=True),
+                            num_workers=2)
+    spec = BatchSpec.uniform(graphs, 32, enc_layout="dedup")
+    batch = pad_and_batch(graphs, spec, device=dev)
+    cfg = OgbGNNConfig(num_tasks=1, num_layers=6, emb_dim=300, dropout=0.0,
+                       virtual_node=True)
+    model = OgbGNN(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    init = copy.deepcopy(model.state_dict())
+
+    def step(perturb):
+        model.load_state_dict(init)
+        model.train()
+        opt = adam_with_plateau(model.parameters(), 1e-3)
+        opt.zero_grad(set_to_none=True)
+        loss = bce_graph_loss(model(batch, perturb=perturb), batch)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return loss.detach(), {k: v.detach().clone()
+                               for k, v in model.state_dict().items()}
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    none = step(None)
+    if not same(step(None), none):
+        raise AssertionError("ogb flag: the step does not repeat bit for "
+                             "bit from one state")
+    zeros = torch.zeros(batch.num_nodes, cfg.emb_dim, device=dev)
+    if not same(step(zeros), none):
+        raise AssertionError("ogb flag: perturb=zeros differs from no "
+                             "perturb")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = (1e-2 * torch.randn(batch.num_nodes, cfg.emb_dim, generator=gen,
+                            device=dev)).requires_grad_(True)
+    model.load_state_dict(init)
+    model.train()
+    loss = bce_graph_loss(model(batch, perturb=p), batch)
+    loss.backward()
+    g = p.grad
+    if not (torch.isfinite(loss) and torch.isfinite(g).all()
+            and float(g.abs().sum()) > 0):
+        raise AssertionError(f"ogb flag: loss {float(loss)}, perturb "
+                             f"gradient norm {float(g.norm())}")
+    real = batch.node_mask[:, None]
+    _log("ogb_flag", graphs=32, N=batch.num_nodes, emb_dim=cfg.emb_dim,
+         layers=cfg.num_layers, zeros_equal_none=True,
+         loss_none=float(none[0]), loss_perturbed=loss.item(),
+         perturb_grad_norm=float(g.norm()),
+         perturb_grad_on_padding=float((g * ~real).abs().sum()),
+         card=json.dumps(smi), ok=True)
 
 
 def main() -> int:
@@ -3827,6 +4335,8 @@ def main() -> int:
         k1_paths = {"train": main_launches["k1"],
                     "run_zinc": k1_zinc,
                     "run_graphcount": k1_count, **k1_mesh,
+                    # slice 13: packed batches of the ZINC twin's split
+                    "packed": run_packed(work, zinc_res, dev, smi),
                     "run_zinc_cycle": run_zinc_cycle_twin(work, smi),
                     "run_qm9": run_qm9_twin(work, smi),
                     "run_ogb_mol": run_ogb_mol_twin(work, smi, dev)}
@@ -3863,6 +4373,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         run_tu_twin(work, smi, dev)
         run_tu_cycles(work, smi)
+    # 14. slice 13: the flat layout against dedup (flagship and GPS), its
+    # bf16 table backward, the pooling zoo and FLAG's input hook
+    k1_paths.update(run_flat(graphs, dev, smi))
+    run_pool_zoo(dev, smi)
+    run_ogb_flag(dev, smi)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",
@@ -3896,6 +4411,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
-        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
-                                sys.argv[4]))
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -7,19 +7,19 @@ permutation. The host arrays are bit-equal to the JAX batcher's; only
 the last step differs: `pad_and_batch` hands them over as tensors on the
 requested device.
 
-This package carries the parts of the JAX batcher that the ported
-drivers run: `BatchSpec.from_graphs` / `BatchSpec.uniform` with the
-`width` and `dedup` encoding layouts, `BatchSpec.copy_uniform` (the
-uniform per-copy blocks of `data/uniform_copies.py`), `batch_iterator`,
-the subgraph-copy levels of the copy family (`node_segment`,
+This package carries the whole JAX batcher: `BatchSpec.from_graphs` /
+`BatchSpec.uniform` / `BatchSpec.exact` with the `width`, `dedup` and
+`flat` encoding layouts, `BatchSpec.copy_uniform` (the uniform per-copy
+blocks of `data/uniform_copies.py`), `batch_iterator`,
+`packed_batch_iterator` (greedy packing under every budget, the flat
+entries included), the subgraph-copy levels of the copy family (`node_segment`,
 `node_segment2`, `center_idx`, `node_original` and their masks), the
 dense `orig_adj`, the k-set levels of the k-GNN family (`kset{k}_*` and
 `assign_2to3_*` extras), GPS's dense SPD matrix `attn_bias` (stacked into
 (G, M, M), M = `max_nodes_per_graph`) and labeled link pairs
 (`pair_index` / `pair_label` / `pair_graph` / `pair_mask` under the
 `num_pairs` budget), and the generic node-, edge- and copy-aligned graph
-extras. The flat layout and packed batches wait for the slices that need
-them and raise, naming their ROADMAP queue.
+extras.
 """
 
 from __future__ import annotations
@@ -58,16 +58,19 @@ class BatchSpec:
 
     `from_graphs` sizes every budget as batch_size x the per-graph
     maximum, so any `batch_size`-subset of the dataset fits; `uniform`
-    pads every graph to an identical (nodes, edges) block.
+    pads every graph to an identical (nodes, edges) block; `exact` sizes
+    the budgets for one specific list of graphs with minimal rounding.
     """
 
     num_graphs: int
     num_nodes: int
     num_edges: int
     # ESC encoding: fixed-width rows (enc_width > 0), optionally
-    # deduplicated into num_enc_rows unique rows + an edge->row map
+    # deduplicated into num_enc_rows unique rows + an edge->row map, or
+    # flat COO entries (num_enc_nnz > 0)
     enc_width: int = 0
     y_is_node_level: bool = False
+    num_enc_nnz: int = 0
     num_enc_rows: int = 0
     # >0: compact the bucket universe per batch — enc_idx is remapped to
     # [0, num_enc_buckets) and `enc_bucket_ids` maps back to table rows
@@ -175,14 +178,49 @@ class BatchSpec:
             num_graphs=bs, y_is_node_level=_infer_node_level_y(graphs), **kw
         )
 
+    @classmethod
+    def exact(cls, graphs: Sequence[GraphData],
+              enc_layout: str = "width") -> "BatchSpec":
+        """Tight budget for exactly this list of graphs: padding drops to
+        rounding slack. On the dedup layout the row budget is the list's
+        true cross-graph distinct-row count."""
+        _check_layout(graphs, enc_layout)
+        mx = _per_graph_maxima(graphs)
+        stats = [_graph_stats(g) for g in graphs]
+        tot = {k: sum(s.get(k, 0) for s in stats)
+               for k in set().union(*stats)}
+        tot["enc_w"] = mx["enc_w"]  # width is per edge: always the max
+        if enc_layout == "dedup":
+            if graphs[0].enc_offsets is not None:
+                rows = set()
+                for g in graphs:
+                    off = np.asarray(g.enc_offsets)
+                    gi, gc = np.asarray(g.enc_idx), np.asarray(g.enc_cnt)
+                    for e in range(len(off) - 1):
+                        lo, hi = int(off[e]), int(off[e + 1])
+                        rows.add(tuple(gi[lo:hi].tolist()
+                                       + gc[lo:hi].tolist()))
+                tot["enc_rows"] = len(rows)
+            tot["enc_buckets"] = _distinct_bucket_budget(graphs)
+            tot["enc_rows_topk"] = tot["enc_rows_cap"] = 0
+        kw = _budgets_from(tot, scale=1, enc_layout=enc_layout)
+        kw["max_nodes_per_graph"] = mx["nodes"]
+        kw["max_segments_per_graph"] = mx["segments"]
+        kw["num_nodes"] = _round_up(tot["nodes"] + 1, 8)
+        kw["num_edges"] = _round_up(max(tot["edges"], 1), 128)
+        return cls(num_graphs=len(graphs),
+                   y_is_node_level=_infer_node_level_y(graphs), **kw)
 
-def _spec_budgets(graphs, batch_size, enc_layout):
+
+def _check_layout(graphs, enc_layout):
     if not graphs:
         raise ValueError("need at least one graph to size a BatchSpec")
-    if enc_layout not in ("width", "dedup"):
-        raise NotImplementedError(
-            f"enc_layout {enc_layout!r}: only 'width' and 'dedup' are ported"
-        )
+    if enc_layout not in ("width", "dedup", "flat"):
+        raise ValueError(f"enc_layout {enc_layout!r}: width, dedup or flat")
+
+
+def _spec_budgets(graphs, batch_size, enc_layout):
+    _check_layout(graphs, enc_layout)
     bs = int(batch_size)
     mx = _per_graph_maxima(graphs)
     if enc_layout == "dedup":
@@ -202,7 +240,8 @@ def _infer_node_level_y(graphs) -> bool:
 
 def _graph_stats(g: GraphData) -> dict:
     ex = g.extras or {}
-    s = {"nodes": g.num_nodes, "edges": g.num_edges, "enc_w": 0, "enc_rows": 0,
+    s = {"nodes": g.num_nodes, "edges": g.num_edges, "enc_w": 0,
+         "enc_nnz": 0, "enc_rows": 0,
          "segments": int(ex.get("num_subgraphs", 0)),
          "segments2": int(ex.get("num_subgraphs2", 0)),
          "original": int(ex.get("num_original_nodes", 0)),
@@ -212,6 +251,7 @@ def _graph_stats(g: GraphData) -> dict:
     if g.enc_offsets is not None:
         nnz = np.diff(np.asarray(g.enc_offsets))
         s["enc_w"] = int(nnz.max()) if nnz.size else 0
+        s["enc_nnz"] = int(nnz.sum())
         s["enc_rows"] = len(np.unique(_graph_row_hashes(g)))
     for k in (2, 3):
         if f"num_kset{k}" in ex:
@@ -297,7 +337,8 @@ def _distinct_bucket_budget(graphs) -> int:
 
 
 def _budgets_from(m: dict, scale: int, enc_layout: str) -> dict:
-    kw = dict(enc_width=0, num_enc_rows=0, max_nodes_per_graph=m["nodes"],
+    kw = dict(enc_width=0, num_enc_nnz=0, num_enc_rows=0,
+              max_nodes_per_graph=m["nodes"],
               max_segments_per_graph=m["segments"])
     for level, key in (("segments", "num_segments"),
                        ("segments2", "num_segments2"),
@@ -312,7 +353,9 @@ def _budgets_from(m: dict, scale: int, enc_layout: str) -> dict:
             n = m.get(f"kset{k}_{part}", 0) if sets else 0
             kw[f"num_kset{k}_{part}"] = (
                 _round_up(scale * n, 16) if sets else 0)
-    if m["enc_w"]:
+    if m["enc_w"] and enc_layout == "flat":
+        kw["num_enc_nnz"] = _round_up(scale * m["enc_nnz"], 128)
+    elif m["enc_w"]:
         kw["enc_width"] = _round_up(m["enc_w"], 8)
         if enc_layout == "dedup":
             # +1: the all-zero row every padding edge maps to; capped by
@@ -454,7 +497,8 @@ def batch_arrays(graphs: Sequence[GraphData], spec: BatchSpec) -> dict:
             y = np.zeros((NG, rows[0].shape[0]), rows[0].dtype)
             y[:G] = np.stack(rows)
             fields["y"] = y
-    if graphs[0].enc_offsets is not None and spec.enc_width > 0:
+    if graphs[0].enc_offsets is not None and (
+            spec.enc_width > 0 or spec.num_enc_nnz > 0):
         fields.update(_batch_encoding(graphs, perms, edge_off, spec))
     if "num_subgraphs" in ex0 and spec.num_segments > 0:
         fields.update(_batch_segments(graphs, n_sizes, node_off, spec))
@@ -783,6 +827,46 @@ def batch_iterator(
                                                               device)
 
 
+def packed_batch_iterator(
+    graphs: Sequence[GraphData],
+    spec: BatchSpec,
+    shuffle: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    device="cuda",
+) -> Iterator:
+    """Greedy packing: fill each batch until a budget (graphs, nodes less
+    the parking node, edges, flat encoding entries) would overflow. Covers
+    every graph exactly once and never needs more batches than
+    `batch_iterator`. Yields like `batch_iterator` (`device=None`: the
+    host arrays)."""
+    idx = np.arange(len(graphs))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    caps = {"graphs": spec.num_graphs, "nodes": spec.num_nodes - 1,
+            "edges": spec.num_edges, "enc": spec.num_enc_nnz or np.inf}
+
+    def emit(cur):
+        arrays = batch_arrays(cur, spec)
+        return arrays if device is None else batch_from_arrays(arrays, spec,
+                                                               device)
+
+    cur: list = []
+    used = dict.fromkeys(caps, 0)
+    for j in idx:
+        g = graphs[j]
+        nnz = (int(np.diff(np.asarray(g.enc_offsets)).sum())
+               if g.enc_offsets is not None and spec.num_enc_nnz else 0)
+        need = dict(graphs=1, nodes=g.num_nodes, edges=g.num_edges, enc=nnz)
+        if cur and any(used[k] + need[k] > caps[k] for k in caps):
+            yield emit(cur)
+            cur, used = [], dict.fromkeys(caps, 0)
+        cur.append(g)
+        for k in need:
+            used[k] += need[k]
+    if cur:
+        yield emit(cur)
+
+
 # fixed coefficients for the row-hash dedup (any odd constants work; the
 # hash only routes rows into np.unique — exactness comes from the verify)
 _HASH_SEED = np.random.default_rng(0x5CE5).integers(
@@ -820,10 +904,42 @@ def _unique_rows(both: np.ndarray):
     return both[np.asarray(first_rows, np.int64)], inv
 
 
+def _batch_flat_encoding(graphs, perms, edge_off, spec: BatchSpec) -> dict:
+    """Flat layout: each graph's COO entries stable-sorted by their new
+    (receiver-sorted, batch-offset) edge id, concatenated in graph order;
+    padding entries carry count 0 on edge E - 1 (in range)."""
+    E, K = spec.num_edges, spec.num_enc_nnz
+    idx_parts, cnt_parts, edge_parts = [], [], []
+    for i, g in enumerate(graphs):
+        nnz = np.diff(np.asarray(g.enc_offsets))
+        if nnz.size == 0:
+            continue
+        inv = np.empty_like(perms[i])
+        inv[perms[i]] = np.arange(len(perms[i]))
+        new_rows = inv[np.repeat(np.arange(len(nnz)), nnz)] + edge_off[i]
+        order = np.argsort(new_rows, kind="stable")
+        idx_parts.append(np.asarray(g.enc_idx)[order])
+        cnt_parts.append(np.asarray(g.enc_cnt)[order])
+        edge_parts.append(new_rows[order])
+    tot = sum(p.shape[0] for p in idx_parts)
+    if tot > K:
+        raise ValueError(f"{tot} encoding entries exceed the flat budget {K}")
+    fi = np.zeros(K, _ENC_DTYPE)
+    fc = np.zeros(K, _ENC_DTYPE)
+    fe = np.full(K, E - 1, np.int32)
+    if tot:
+        fi[:tot] = np.concatenate(idx_parts).astype(_ENC_DTYPE)
+        fc[:tot] = np.concatenate(cnt_parts).astype(_ENC_DTYPE)
+        fe[:tot] = np.concatenate(edge_parts).astype(np.int32)
+    return {"enc_flat_idx": fi, "enc_flat_cnt": fc, "enc_flat_edge": fe}
+
+
 def _batch_encoding(graphs, perms, edge_off, spec: BatchSpec) -> dict:
     """Width layout: (E, P) rows; dedup layout: the batch's unique rows
     plus the edge -> row map, row weights, sorted-CSR view, bucket
-    compaction and host count matrix."""
+    compaction and host count matrix; flat layout: COO entries."""
+    if spec.enc_width == 0:
+        return _batch_flat_encoding(graphs, perms, edge_off, spec)
     E, W = spec.num_edges, spec.enc_width
     enc_idx = np.zeros((E, W), _ENC_DTYPE)
     enc_cnt = np.zeros((E, W), _ENC_DTYPE)

@@ -58,10 +58,14 @@ class GraphBatch:
 
     Padding conventions follow the JAX package: padding edges park on a
     padding node slot (receivers stay non-decreasing), padding nodes are
-    flagged by `node_mask`. The dedup encoding layout carries the batch's
-    unique (R, P) rows in `enc_idx`/`enc_cnt`, the edge -> row map
-    `enc_edge_row`, the rows' real-edge multiplicities `enc_row_weight`,
-    the sorted-CSR view `enc_edge_perm`/`enc_row_sorted` (the input of the
+    flagged by `node_mask`. The width encoding layout carries (E, P)
+    rows in `enc_idx`/`enc_cnt`; the flat layout carries (K,) COO
+    entries `enc_flat_idx`/`enc_flat_cnt`/`enc_flat_edge` sorted by edge
+    id (padding entries: count 0 on edge E - 1). The dedup encoding
+    layout carries the batch's unique (R, P) rows in `enc_idx`/`enc_cnt`,
+    the edge -> row map `enc_edge_row`, the rows' real-edge
+    multiplicities `enc_row_weight`, the sorted-CSR view
+    `enc_edge_perm`/`enc_row_sorted` (the input of the
     sorted-segment-sum kernel), the compact bucket ids `enc_bucket_ids`
     and, where it fits, the host count matrix `enc_countmat`. `extras`
     maps names to tensors padded like `x` (node-aligned), permuted like
@@ -91,6 +95,10 @@ class GraphBatch:
     node_local: Optional[torch.Tensor] = None
     enc_idx: Optional[torch.Tensor] = None
     enc_cnt: Optional[torch.Tensor] = None
+    # flat COO layout: (K,) entries sorted by edge id
+    enc_flat_idx: Optional[torch.Tensor] = None
+    enc_flat_cnt: Optional[torch.Tensor] = None
+    enc_flat_edge: Optional[torch.Tensor] = None
     enc_edge_row: Optional[torch.Tensor] = None
     enc_row_weight: Optional[torch.Tensor] = None
     enc_edge_perm: Optional[torch.Tensor] = None

@@ -1,11 +1,13 @@
 """Batch prefetching and device-resident batch pools (counterpart of
 `escgnn_tpu/data/prefetch.py`).
 
-  * `prefetched_batches`: the batches of `batch_iterator`, built `depth`
-    ahead on a background thread, which also issues their copies to the
-    card from pinned host memory.
+  * `prefetched_batches`: the batches of `batch_iterator` (or of
+    `packed_batch_iterator` with `packed=True`), built `depth` ahead on a
+    background thread, which also issues their copies to the card from
+    pinned host memory.
   * `materialized_batches`: a fixed split padded once, kept on the card
-    when it is small.
+    when it is small; `materialized_batch_pools`: k of them, each over
+    its own permutation of the graphs.
   * `stack_split` and `stacked_batch_pools`: padded batches stacked along
     a new leading pool axis on the card, one `GraphBatch` whose tensors
     carry that axis (fields that are None stay None). A pool step indexes
@@ -37,6 +39,7 @@ from escgnn_tpu_torch.data.batching import (
     BatchSpec,
     batch_from_arrays,
     batch_iterator,
+    packed_batch_iterator,
 )
 from escgnn_tpu_torch.data.container import GraphBatch, GraphData
 from escgnn_tpu_torch.device import resolve_device
@@ -50,21 +53,23 @@ def prefetched_batches(
     shuffle: bool = False,
     rng: Optional[np.random.Generator] = None,
     device="cuda",
+    packed: bool = False,
     depth: int = 2,
 ) -> Iterator[GraphBatch]:
     """Yield the batches of `batch_iterator(graphs, spec, shuffle, rng)`
-    on `device`, built `depth` ahead on a background thread. On a CUDA
-    device the thread copies each array through pinned memory without
-    blocking; the copies are ordered before the consumer's work on the
-    same (default) stream."""
+    (`packed_batch_iterator` with `packed=True`) on `device`, built
+    `depth` ahead on a background thread. On a CUDA device the thread
+    copies each array through pinned memory without blocking; the copies
+    are ordered before the consumer's work on the same (default) stream."""
     device = resolve_device(device)
+    it_fn = packed_batch_iterator if packed else batch_iterator
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
 
     def produce():
         try:
-            for arrays in batch_iterator(graphs, spec, shuffle=shuffle,
-                                         rng=rng, device=None):
+            for arrays in it_fn(graphs, spec, shuffle=shuffle, rng=rng,
+                                device=None):
                 q.put(batch_from_arrays(arrays, spec, device, pin=True))
         except BaseException as e:  # raised again in the consumer
             err.append(e)
@@ -141,6 +146,21 @@ def materialized_batches(graphs: Sequence[GraphData], spec: BatchSpec,
     host = _host_batches(graphs, spec, batch_transform)
     total = sum(_nbytes(b) for b in host)
     return _CachedBatches(host, device, pin=total <= pin_bytes)
+
+
+def materialized_batch_pools(graphs: Sequence[GraphData], spec: BatchSpec,
+                             k: int = 4, seed: int = 0,
+                             pin_bytes: int = 256 * 2**20, device="cuda"
+                             ) -> list:
+    """`k` `materialized_batches` of the same graphs, pool i padded in
+    the order of the i-th `np.random.default_rng(seed).permutation` (the
+    JAX package's draws). Cycling them across epochs stands in for
+    re-forming batches every epoch at k paddings in all; k = 1 is a
+    fixed pool."""
+    rng = np.random.default_rng(seed)
+    return [materialized_batches(
+        [graphs[int(i)] for i in rng.permutation(len(graphs))], spec,
+        device=device, pin_bytes=pin_bytes) for _ in range(max(1, k))]
 
 
 def stack_split(graphs: Sequence[GraphData], spec: BatchSpec,

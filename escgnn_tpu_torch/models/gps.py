@@ -653,7 +653,8 @@ class GPSLayer(nn.Module):
         cfg = self.cfg
         if cfg.global_model == "graphormer":
             return self._graphormer(h, edge_attr, batch)
-        if cfg.use_esc and batch.enc_idx is not None:
+        if cfg.use_esc and (batch.enc_idx is not None
+                            or batch.enc_flat_idx is not None):
             edge_attr = edge_attr + self._z(batch)
         if cfg.local_model == "gatedgcn":
             pe = ((batch.extras or {}).get("equivstable_pe")

@@ -32,6 +32,26 @@ from escgnn_tpu_torch.ops.embed import embed_take
 from escgnn_tpu_torch.ops.segment import segment_sum
 
 
+def torch_linear_kernel_init(generator: torch.Generator, shape,
+                             dtype=torch.float32):
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)), torch nn.Linear's default, for
+    a kernel in flax's (fan_in, ...) layout, drawn from `generator`."""
+    bound = 1.0 / math.sqrt(shape[0])
+    return torch.empty(tuple(shape), dtype=dtype).uniform_(
+        -bound, bound, generator=generator)
+
+
+def torch_linear_bias_init(fan_in: int):
+    """The bias init of nn.Linear for `fan_in` inputs: a function
+    (generator, shape, dtype) -> U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    def init(generator: torch.Generator, shape, dtype=torch.float32):
+        bound = 1.0 / math.sqrt(fan_in)
+        return torch.empty(tuple(shape), dtype=dtype).uniform_(
+            -bound, bound, generator=generator)
+
+    return init
+
+
 class TorchDense(nn.Linear):
     """nn.Linear with torch's default init drawn from `generator`; a
     lower-precision input is promoted to the f32 weight dtype."""

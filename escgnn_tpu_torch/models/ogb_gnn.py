@@ -160,6 +160,8 @@ class OgbGNNConfig:
     z_dim: int = 1800
     # random node initialisation: h0 += U(-1, 1), in train() only
     rni: bool = False
+    # feed the raw batch.x (float, emb_dim wide) as h0: no node encoder
+    skip_node_encoder: bool = False
     # float32 | bfloat16 conv inputs (f32 params, BN statistics and head)
     compute_dtype: str = "float32"
     # ogbg-ppa: one learned node row and a linear encoder on the 7 float
@@ -196,7 +198,7 @@ class GNNNodeEfficient(nn.Module):
         if cfg.ppa_encoders:
             self.node_const = nn.Parameter(
                 torch.empty(d).normal_(0.0, 1.0, generator=g))
-        else:
+        elif not cfg.skip_node_encoder:
             self.node_encoder = FeatureSumEncoder(ATOM_FEATURE_DIMS, d,
                                                   generator=g)
         if cfg.use_rp:
@@ -216,13 +218,15 @@ class GNNNodeEfficient(nn.Module):
                 self.add_module(f"mlp_virtualnode_{layer}", MLP(
                     d, (2 * d, d), F.relu, generator=g))
 
-    def forward(self, batch: GraphBatch):
+    def forward(self, batch: GraphBatch, perturb=None):
         cfg = self.cfg
         d, N, G = cfg.emb_dim, batch.num_nodes, batch.num_graphs
         node_mask, edge_mask = batch.node_mask, batch.edge_mask
 
         if cfg.ppa_encoders:
             h = self.node_const.expand(N, d)
+        elif cfg.skip_node_encoder:
+            h = batch.x.to(torch.float32)
         else:
             h = self.node_encoder(batch.x)
         if cfg.use_rp:
@@ -234,6 +238,10 @@ class GNNNodeEfficient(nn.Module):
         if cfg.rni and self.training:
             h = h + (torch.rand(h.shape, generator=self.rng,
                                 device=h.device, dtype=h.dtype) * 2.0 - 1.0)
+        if perturb is not None:
+            # FLAG's adversarial input perturbation: added to h0, so its
+            # gradient can drive an ascent step
+            h = h + perturb
 
         u = (zemb_unique_rows(self.z_initial, batch) if cfg.dropout == 0.0
              else None)
@@ -388,9 +396,11 @@ class OgbGNN(nn.Module):
                        agg * avg_logd / (logd + 1e-6)], dim=-1)
         return F.relu(self.sub_nn_1(F.relu(self.sub_nn_0(g))))
 
-    def forward(self, batch: GraphBatch):
+    def forward(self, batch: GraphBatch, perturb=None):
+        """Graph logits (G, num_tasks); `perturb` (N, emb_dim), FLAG's
+        input hook, is added to the node state h0."""
         cfg = self.cfg
-        h = self.gnn_node(batch)
+        h = self.gnn_node(batch, perturb)
         ids, G, mask = batch.node_graph, batch.num_graphs, batch.node_mask
         two_level = batch.node_segment is not None
         if two_level:

@@ -1,21 +1,28 @@
 """Graph pooling (counterpart of `escgnn_tpu/models/pooling.py`):
-`to_dense_batch`, `Set2Set`, `global_sort_pool`, `GlobalAttentionPool`
-and `graph_pool`, the dispatch that BaselineGNN pools through.
-
-`TopKPool`, `dense_diff_pool` and graclus come with the TU driver
-(ROADMAP 9).
+`to_dense_batch`, `Set2Set`, `global_sort_pool`, `GlobalAttentionPool`,
+`graph_pool` (the dispatch that BaselineGNN pools through) and the TU
+baselines' pooling zoo: `TopKPool` in mask form (dropped nodes gated to
+zero and masked out, so the node set keeps its static size),
+`dense_diff_pool` on the dense per-graph view, `batch_dense_adj`,
+`graclus_cluster` (greedy heavy-edge matching, host numpy) and
+`pool_by_cluster`.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch import nn
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.models.layers import TorchDense
 from escgnn_tpu_torch.ops.segment import (
+    masked_ids,
     segment_max,
     segment_mean,
+    segment_min,
     segment_softmax,
     segment_sum,
 )
@@ -173,3 +180,121 @@ def graph_pool_width(how: str, features: int, sort_k: int = 10) -> int:
     if how == "sort":
         return sort_k * features
     return features
+
+
+class TopKPool(nn.Module):
+    """TopK pooling (Gao & Ji; PyG TopKPooling) in mask form: score =
+    x . p / |p|; the nodes of each graph whose descending score rank is
+    at least ceil(ratio * n_g) are gated to zero and masked out; the kept
+    ones are scaled by tanh(score). Returns (x', node_mask'). `weight`
+    (p) is drawn N(0, 0.1) from `generator`, as flax's init draws it."""
+
+    def __init__(self, features: int, ratio: float = 0.8, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.ratio = ratio
+        self.weight = nn.Parameter(
+            torch.empty(features).normal_(0.0, 0.1, generator=generator))
+
+    def forward(self, x, batch: GraphBatch, node_mask):
+        p = self.weight
+        score = x @ p / torch.linalg.vector_norm(p).clamp_min(1e-12)
+        G, n = batch.num_graphs, x.shape[0]
+        node_graph = batch.node_graph.long()
+        # within-graph descending rank: sort by score (descending; masked
+        # nodes last), then stably by graph id; a node's rank is its
+        # sorted position less its graph's first sorted position
+        s = torch.where(node_mask, score.detach(),
+                        torch.full((), float("-inf"), dtype=score.dtype,
+                                   device=score.device))
+        by_score = torch.argsort(-s, stable=True)
+        perm = by_score[torch.argsort(node_graph[by_score], stable=True)]
+        pos = torch.empty(n, dtype=torch.long, device=x.device)
+        pos[perm] = torch.arange(n, device=x.device)
+        first = segment_min(pos.to(torch.float32), node_graph, G)
+        rank = pos.to(torch.float32) - first[node_graph]
+        n_per_graph = segment_sum(node_mask.to(torch.float32), node_graph, G)
+        keep_n = torch.ceil(self.ratio * n_per_graph)
+        keep = (rank < keep_n[node_graph]) & node_mask
+        x_out = torch.where(keep[:, None], x * torch.tanh(score)[:, None],
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+        return x_out, keep
+
+
+def dense_diff_pool(x_dense, adj_dense, s_logits, mask):
+    """DiffPool (Ying et al.; PyG dense_diff_pool): S = softmax(s_logits)
+    over the clusters, masked rows zero; X' = S^T X, A' = S^T A S; the
+    link loss |A - S S^T|_F^2 / n^2 and the entropy loss, each averaged
+    over the graphs. Returns (x', adj', link_loss, ent_loss)."""
+    s = torch.softmax(s_logits, dim=-1)
+    s = torch.where(mask[..., None], s, torch.zeros((), dtype=s.dtype,
+                                                    device=s.device))
+    x_out = torch.einsum("bnk,bnf->bkf", s, x_dense)
+    adj_out = torch.einsum("bnk,bnm,bml->bkl", s, adj_dense, s)
+    link = adj_dense - torch.einsum("bnk,bmk->bnm", s, s)
+    denom = mask.sum(1).clamp_min(1).to(link.dtype)
+    link_loss = (link * link).sum((1, 2)) / denom ** 2
+    ent = -torch.where(s > 1e-15, s * torch.log(s + 1e-15),
+                       torch.zeros((), dtype=s.dtype, device=s.device)
+                       ).sum(-1)
+    ent_loss = torch.where(mask, ent, torch.zeros(
+        (), dtype=ent.dtype, device=ent.device)).sum(1) / denom
+    return x_out, adj_out, link_loss.mean(), ent_loss.mean()
+
+
+def batch_dense_adj(batch: GraphBatch, max_nodes: int):
+    """Dense (G, M, M) adjacency from the padded edge list (padding edges
+    routed to slot 0 with weight 0)."""
+    G = batch.num_graphs
+    local = batch.node_local.long()
+    s, r = batch.senders.long(), batch.receivers.long()
+    flat = (batch.node_graph.long()[r] * max_nodes * max_nodes
+            + local[s] * max_nodes + local[r])
+    flat = masked_ids(flat, batch.edge_mask)
+    ones = torch.ones(s.shape[0], dtype=torch.float32, device=s.device)
+    adj = segment_sum(ones, flat, G * max_nodes * max_nodes,
+                      mask=batch.edge_mask)
+    return adj.reshape(G, max_nodes, max_nodes)
+
+
+def graclus_cluster(edge_index: np.ndarray, num_nodes: int,
+                    edge_weight: Optional[np.ndarray] = None,
+                    seed: int = 0) -> np.ndarray:
+    """Greedy heavy-edge matching (graclus; torch_cluster.graclus): nodes
+    visited in the order of `np.random.default_rng(seed).permutation`,
+    each unmatched node paired with its heaviest unmatched neighbour
+    (first such on ties). Host numpy, JAX's draws: the same ids for the
+    same seed. Returns (N,) int64 cluster ids in [0, num_clusters)."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(num_nodes)
+    cluster = np.full(num_nodes, -1, np.int64)
+    src, dst = edge_index[0], edge_index[1]
+    if edge_weight is None:
+        edge_weight = np.ones(src.shape[0], np.float64)
+    adj: list = [[] for _ in range(num_nodes)]
+    for u, v, w in zip(src.tolist(), dst.tolist(), edge_weight.tolist()):
+        if u != v:
+            adj[u].append((v, float(w)))
+    next_id = 0
+    for v in order.tolist():
+        if cluster[v] >= 0:
+            continue
+        best, best_w = -1, -1.0
+        for u, w in adj[v]:
+            if cluster[u] < 0 and w > best_w:
+                best, best_w = u, w
+        cluster[v] = next_id
+        if best >= 0:
+            cluster[best] = next_id
+        next_id += 1
+    return cluster
+
+
+def pool_by_cluster(x, cluster, num_clusters: int, mask=None, how="avg"):
+    """avg / max / sum pool of node rows into cluster rows (k_gnn
+    avg_pool, PyG avg_pool_x)."""
+    if how == "avg":
+        return segment_mean(x, cluster, num_clusters, mask=mask)
+    if how == "max":
+        return segment_max(x, cluster, num_clusters, mask=mask)
+    return segment_sum(x, cluster, num_clusters, mask=mask)

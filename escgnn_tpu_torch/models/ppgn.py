@@ -178,7 +178,7 @@ class PPGN(nn.Module):
         em = batch.edge_mask.to(torch.float32)[:, None]
         if not self.cfg.use_esc:
             return em
-        if batch.enc_idx is None:
+        if batch.enc_idx is None and batch.enc_flat_idx is None:
             raise ValueError("PPGN with use_esc needs a batch with the ESC "
                              "encoding")
         z = zemb_from_batch(self.z_initial, batch)

@@ -168,3 +168,16 @@ def pool_copy_blocks(values, batch, num_segments: int, reduce: str = "mean"):
     if n_c is None or values.shape[0] != num_segments * n_c:
         return None
     return _block_reduce(values, batch.node_mask, num_segments, n_c, reduce)
+
+
+def masked_mean(values, mask, axis=None):
+    """Mean of `values` over the positions where `mask` is true; `mask`
+    covers the leading axes of `values` and counts once per position (a
+    masked row of F features is one count, as in JAX). No position
+    selected gives 0."""
+    m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
+    s = torch.where(m, values, torch.zeros((), dtype=values.dtype,
+                                           device=values.device))
+    if axis is None:
+        return s.sum() / m.sum().clamp_min(1)
+    return s.sum(axis) / m.sum(axis).clamp_min(1)

@@ -1,5 +1,5 @@
 """Structural-embedding reduce: the z_emb hot op (counterpart of
-`escgnn_tpu/ops/zemb.py`, dedup and width layouts).
+`escgnn_tpu/ops/zemb.py`, dedup, width and flat layouts).
 
 Per edge e:  z_emb[e] = sum_{k in nnz(e)} count_k * table[bucket_k].
 
@@ -8,7 +8,13 @@ rows and is expanded to the E edges with one gather (`expand_rows`), whose
 backward is the sorted-segment-sum kernel (K1) on CUDA tensors. With
 bucket compaction the (Zc, H) active table is gathered first; with the
 host count matrix `enc_countmat` the reduce is one matmul C @ table.
-On the width layout the reduce runs over the E edge rows directly.
+On the width layout the reduce runs over the E edge rows directly. On
+the flat layout (`zemb_weighted_flat`) the K COO entries are gathered,
+weighted and summed into their edges with one `index_add_`; its backward
+is one more (dTable by bucket id) and a gathered dot per entry (dCnt),
+where JAX scans 128-entry blocks of one-hot matmuls, a TPU workaround
+for scatters. JAX computes the flat path in plain XLA, so it has no hand
+kernel here either.
 
 Without a host count matrix, `zemb_weighted_gather` reduces by impl:
   * "countmat" (the default): C built in PyTorch, then C @ table;
@@ -17,7 +23,14 @@ Without a host count matrix, `zemb_weighted_gather` reduces by impl:
   * "gather": the plain gather-reduce;
   * "pallas": the row-gather kernel (K3).
 The names are the JAX package's. "gather" and "pallas" share one
-backward, dT = C^T @ dZ in f32 with C built in PyTorch.
+backward, dT = C^T @ dZ with C built in PyTorch.
+
+`set_backward_matmul_dtype` sets the dtype the table backwards of the
+gather, K2 and flat paths round their operands to, as JAX's does (it
+accumulates in f32 either way). JAX defaults to bf16 for MXU throughput;
+the port's default is f32, so the gradients are exact unless a caller
+asks for bf16. The products of two bf16 values are exact in f32, so the
+port's bf16 option gives JAX's bf16 gradients up to summation order.
 """
 
 from __future__ import annotations
@@ -30,6 +43,22 @@ from escgnn_tpu_torch.ops.zemb_cuda import count_matrix as _count_matrix
 
 IMPLS = ("countmat", "countmat_pallas", "gather", "pallas")
 _IMPL = "countmat"
+_BWD_MATMUL_DTYPE = torch.float32
+
+
+def set_backward_matmul_dtype(dtype):
+    """torch.float32 (the default) or torch.bfloat16: the dtype the table
+    backwards round their operands to before accumulating in f32."""
+    global _BWD_MATMUL_DTYPE
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"backward matmul dtype {dtype}: float32 or "
+                         "bfloat16")
+    _BWD_MATMUL_DTYPE = dtype
+
+
+def _bwd_operand(t):
+    """`t` in f32 after rounding to the backward matmul dtype."""
+    return t.to(_BWD_MATMUL_DTYPE).to(torch.float32)
 
 
 def set_impl(impl: str):
@@ -56,13 +85,14 @@ class _ZembCountmat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dZ):
         (C,) = ctx.saved_tensors
-        return C.t() @ dZ.to(torch.float32), None, None
+        return _bwd_operand(C).t() @ _bwd_operand(dZ), None, None
 
 
 class _ZembGather(torch.autograd.Function):
     """Counterpart of `_zemb_core`: forward K3 (impl "pallas") or the
     plain gather-reduce (impl "gather"); backward dT = C^T @ dZ in f32,
-    C built from the ids and counts (no gradient for either)."""
+    C built from the ids and counts (no gradient for either); the
+    operands rounded as `set_backward_matmul_dtype` says."""
 
     @staticmethod
     def forward(ctx, table, enc_idx, enc_cnt, kernel: bool):
@@ -76,7 +106,7 @@ class _ZembGather(torch.autograd.Function):
     def backward(ctx, dZ):
         enc_idx, enc_cnt = ctx.saved_tensors
         C = _count_matrix(enc_idx, enc_cnt, ctx.num_buckets)
-        return C.t() @ dZ.to(torch.float32), None, None, None
+        return _bwd_operand(C).t() @ _bwd_operand(dZ), None, None, None
 
 
 def zemb_weighted_gather(table, enc_idx, enc_cnt):
@@ -90,6 +120,39 @@ def zemb_weighted_gather(table, enc_idx, enc_cnt):
         return _ZembCountmat.apply(table.contiguous(), enc_idx, enc_cnt)
     return _ZembGather.apply(table.contiguous(), enc_idx, enc_cnt,
                              _IMPL == "pallas")
+
+
+class _ZembFlat(torch.autograd.Function):
+    """Counterpart of `_zemb_flat_core`: z[e] = sum_{k: edge_k = e}
+    cnt_k * table[idx_k]; dTable[z] = sum_{k: idx_k = z} cnt_k *
+    dZ[edge_k] and dCnt[k] = table[idx_k] . dZ[edge_k]."""
+
+    @staticmethod
+    def forward(ctx, table, idx, cnt, edge, num_edges: int):
+        ctx.save_for_backward(table, idx, cnt, edge)
+        rows = table.index_select(0, idx).to(torch.float32) * cnt[:, None]
+        return rows.new_zeros(num_edges, table.shape[1]).index_add_(
+            0, edge, rows)
+
+    @staticmethod
+    def backward(ctx, dZ):
+        table, idx, cnt, edge = ctx.saved_tensors
+        dZ_k = dZ.to(torch.float32).index_select(0, edge)
+        dT = torch.zeros(table.shape, dtype=torch.float32,
+                         device=table.device).index_add_(
+            0, idx, _bwd_operand(cnt)[:, None] * _bwd_operand(dZ_k))
+        dCnt = (table.index_select(0, idx).to(torch.float32) * dZ_k).sum(-1)
+        return dT.to(table.dtype), None, dCnt, None, None
+
+
+def zemb_weighted_flat(table, flat_idx, flat_cnt, flat_edge,
+                       num_edges: int):
+    """Per-edge weighted sum of table rows from flat COO entries ->
+    (num_edges, H) f32. Padding entries have cnt == 0. Accepts the int16
+    wire format from the batcher; the counts are differentiable."""
+    return _ZembFlat.apply(table, flat_idx.long(),
+                           flat_cnt.to(torch.float32), flat_edge.long(),
+                           num_edges)
 
 
 def zemb_unique_rows(table, batch):
@@ -137,8 +200,13 @@ def expand_rows(u, batch):
 
 def zemb_from_batch(table, batch):
     """Dispatch on the batch's encoding layout: unique rows + expansion
-    on the dedup layout, the per-edge reduce on the width layout."""
+    on the dedup layout, the COO entries on the flat layout, the per-edge
+    reduce on the width layout."""
     u = zemb_unique_rows(table, batch)
     if u is not None:
         return expand_rows(u, batch)
+    if batch.enc_flat_idx is not None:
+        return zemb_weighted_flat(table, batch.enc_flat_idx,
+                                  batch.enc_flat_cnt, batch.enc_flat_edge,
+                                  batch.num_edges)
     return zemb_weighted_gather(table, batch.enc_idx, batch.enc_cnt)

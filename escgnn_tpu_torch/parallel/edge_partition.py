@@ -20,6 +20,9 @@ Which rank holds what (`_shardings`):
     (`enc_edge_perm` / `enc_row_sorted`), the input of K1, the expansion
     backward's kernel, on the rank's own edges. JAX drops that view and
     falls back to XLA's scatter transpose;
+  * on the flat layout the K COO entries stay whole on every rank (JAX
+    replicates them too), each rank's copy rebased to its edge slice:
+    entries of other ranks' edges get count 0 and edge 0;
   * under ep the node and graph fields are replicated; under dp_ep they
     are split over the data axis (graphs are row-contiguous in the
     uniform layout, so data shard i holds whole graphs with their edges)
@@ -37,7 +40,7 @@ from escgnn_tpu_torch.parallel.data_parallel import (
     make_sharded_step,
     row_share,
 )
-from escgnn_tpu_torch.parallel.mesh import axis_size
+from escgnn_tpu_torch.parallel.mesh import axis_size, check_axes
 from escgnn_tpu_torch.train.loop import make_pool_train_step
 
 EDGE_FIELDS = ("senders", "receivers", "edge_mask", "edge_attr",
@@ -46,6 +49,8 @@ NODE_FIELDS = ("x", "pos", "node_mask", "node_graph", "node_local", "y")
 GRAPH_FIELDS = ("graph_mask",)
 # rebuilt by each rank from its edge slice (dedup layout)
 LOCAL_FIELDS = ("enc_row_weight", "enc_edge_perm", "enc_row_sorted")
+# the flat layout's COO entries, whole on every rank, rebased to its slice
+FLAT_FIELDS = ("enc_flat_idx", "enc_flat_cnt", "enc_flat_edge")
 # the fields a sharded NestedGINEff batch may carry besides those above
 _REPLICATED = ("enc_bucket_ids", "enc_countmat")
 
@@ -55,7 +60,7 @@ def _coordinate(mesh, axis: str) -> int:
 
 
 def _spec_for(name: str, dedup: bool, split_rows: bool) -> str:
-    if name in LOCAL_FIELDS and dedup:
+    if (name in LOCAL_FIELDS and dedup) or name in FLAT_FIELDS:
         return "local"
     if name in EDGE_FIELDS and not (dedup and name in ("enc_idx", "enc_cnt")):
         return "edges"
@@ -67,6 +72,27 @@ def _spec_for(name: str, dedup: bool, split_rows: bool) -> str:
 def _shardings(batch: GraphBatch, split_rows: bool) -> dict:
     dedup = batch.enc_edge_row is not None
     return {k: _spec_for(k, dedup, split_rows) for k in batch.tensors()}
+
+
+def batch_shardings(batch: GraphBatch, mesh, axis: str = "model") -> dict:
+    """The 1-D edge partition's placement of each tensor of `batch`, by
+    its flat `tensors()` name: "edges" (contiguous slices of its leading
+    edge axis over `axis`, JAX's P(axis)), "local" (whole on every rank
+    and rebuilt from its edge slice: the dedup multiplicities and sorted
+    view, which JAX replicates or drops, and the flat COO entries, which
+    JAX replicates) or "replicated" (JAX's P())."""
+    check_axes(mesh, (axis,))
+    return _shardings(batch, split_rows=False)
+
+
+def batch_shardings_2d(batch: GraphBatch, mesh, data_axis: str = "data",
+                       model_axis: str = "model") -> dict:
+    """The 2-D dp x ep placement: as `batch_shardings`, the edge slices
+    over data x model (JAX's P((data, model))) and the node- and
+    graph-aligned tensors in "rows" slices over `data_axis` (JAX's
+    P(data))."""
+    check_axes(mesh, (data_axis, model_axis))
+    return _shardings(batch, split_rows=True)
 
 
 def _local_view(edge_row, edge_mask, num_rows: int, like_perm, like_weight):
@@ -106,7 +132,7 @@ def _shard(batch: GraphBatch, data: tuple, model: tuple,
         if batch.extras:
             raise ValueError("dp_ep does not split a batch's extras")
     unknown = [k for k in t if k not in EDGE_FIELDS + NODE_FIELDS
-               + GRAPH_FIELDS + LOCAL_FIELDS + _REPLICATED
+               + GRAPH_FIELDS + LOCAL_FIELDS + FLAT_FIELDS + _REPLICATED
                and not k.startswith("extras.")]
     if unknown:
         raise ValueError(f"edge partition: no layout for {unknown}")
@@ -135,6 +161,13 @@ def _shard(batch: GraphBatch, data: tuple, model: tuple,
             if k == "node_graph":
                 v = v - g0
         out[k] = v
+    if batch.enc_flat_edge is not None:
+        edge = t["enc_flat_edge"]
+        mine = (edge >= e0) & (edge < e0 + e_len)
+        out["enc_flat_edge"] = torch.where(mine, edge - e0,
+                                           torch.zeros_like(edge))
+        out["enc_flat_cnt"] = torch.where(
+            mine, t["enc_flat_cnt"], torch.zeros_like(t["enc_flat_cnt"]))
     if batch.enc_edge_row is not None:
         R = t["enc_idx"].shape[lead]
         out["enc_row_weight"], out["enc_edge_perm"], out["enc_row_sorted"] = (

@@ -16,6 +16,15 @@ the parameter sum of `parallel/data_parallel.py`.
 `build_halo_batch` lays a width-layout batch out as per-rank shards (a
 leading device axis); rank d trains on entry d (`halo_shard`), with
 `NestedGINEff` under `halo_axis`.
+
+The toy GINE stack of JAX's halo module runs on the same plan: this
+rank's plan arrays (`shard_plan`), one aggregation (`halo_gine_aggregate`,
+`make_halo_gine_forward`) and a whole training step of `num_layers`
+layers h <- relu((h + agg(h)) @ w_i + b_i) with replicated {w_i, b_i},
+a masked global L2 loss, summed gradients and an SGD update
+(`make_halo_train_step`). Where JAX's functions take the whole arrays
+sharded over the mesh, these take this rank's shard: rank d's node rows
+d * N/D ... (d + 1) * N/D and its entry of the plan's leading axis.
 """
 
 from __future__ import annotations
@@ -26,12 +35,19 @@ import numpy as np
 import torch
 
 from escgnn_tpu_torch.data.container import GraphBatch
+from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.parallel.data_parallel import (
     check_backend,
     make_sharded_step,
     row_share,
 )
-from escgnn_tpu_torch.parallel.mesh import all_gather, axis_size
+from escgnn_tpu_torch.parallel.mesh import (
+    all_gather,
+    axis_index,
+    axis_size,
+    check_axes,
+    psum,
+)
 from escgnn_tpu_torch.train.loop import l1_node_loss, make_pool_train_step
 
 PLAN_FIELDS = ("senders", "receivers", "edge_mask", "edge_perm",
@@ -151,6 +167,84 @@ def halo_exchange(x_local, boundary_send, halo_src, axis):
     block = all_gather(boundary, axis)
     return block.reshape(-1, x_local.shape[-1]).index_select(
         0, halo_src.long())
+
+
+def shard_plan(plan: HaloPlan, mesh, axis: str = "model",
+               device="cuda") -> dict:
+    """This rank's entry of the plan's arrays (`PLAN_FIELDS`), as tensors
+    on `device`; rank d takes index d of the leading axis. The plan
+    itself stays on the host."""
+    check_axes(mesh, (axis,))
+    device = resolve_device(device)
+    d = axis_index(axis)
+    return {k: torch.from_numpy(np.ascontiguousarray(getattr(plan, k)[d]))
+            .to(device) for k in PLAN_FIELDS}
+
+
+def halo_gine_aggregate(x_local, edge_emb_local, plan_dev: dict, axis,
+                        edge_mask_local=None):
+    """One GINE message aggregation under the halo plan, on this rank:
+    out[v] = sum over its local edges (u -> v) of relu(x_ext[u] + e_uv),
+    x_ext = [own rows | halo rows]. The halo all_gather is the only
+    collective; the sum is local."""
+    halo = halo_exchange(x_local, plan_dev["boundary_send"],
+                         plan_dev["halo_src"], axis)
+    x_ext = torch.cat([x_local, halo], dim=0)
+    msg = torch.relu(x_ext.index_select(0, plan_dev["senders"].long())
+                     + edge_emb_local)
+    mask = plan_dev["edge_mask"]
+    if edge_mask_local is not None:
+        mask = mask & edge_mask_local
+    msg = torch.where(mask[:, None], msg, torch.zeros((), dtype=msg.dtype,
+                                                      device=msg.device))
+    return msg.new_zeros(x_local.shape).index_add_(
+        0, plan_dev["receivers"].long(), msg)
+
+
+def make_halo_gine_forward(mesh, axis: str = "model"):
+    """`fwd(x_local, edge_emb_local, plan_dev) -> (N/D, F)`: the halo
+    aggregation on this rank's node rows, its (E_shard, F) edge payload
+    (`scatter_edge_payload`, entry d) and its `shard_plan`."""
+    check_axes(mesh, (axis,))
+
+    def fwd(x_local, edge_emb_local, plan_dev):
+        return halo_gine_aggregate(x_local, edge_emb_local, plan_dev, axis)
+
+    return fwd
+
+
+def make_halo_train_step(mesh, num_layers: int, lr: float = 1e-2,
+                         axis: str = "model"):
+    """`step(params, x, edge_emb, y, node_mask, plan_dev) -> (new_params,
+    loss)`: one node+edge-partitioned SGD step of the toy GINE stack on
+    this rank's shard. `params` {'w_i': (F, F), 'b_i': (F,)} is
+    replicated (the same on every rank, as after `weights.halo_params`).
+    Each rank differentiates its rows' part of the masked global L2 mean
+    (the node count summed over `axis`, outside the gradient); the
+    gradients and the loss are summed over `axis`, so every rank takes
+    the single-device step. The backward of the halo all_gather
+    reduce-scatters the remote rows' cotangents."""
+    check_axes(mesh, (axis,))
+    names = [f"{p}_{i}" for i in range(num_layers) for p in ("w", "b")]
+
+    def step(params: dict, x, edge_emb, y, node_mask, plan_dev):
+        if sorted(params) != sorted(names):
+            raise ValueError(f"params {sorted(params)}: want {names}")
+        p = {k: params[k].detach().requires_grad_(True) for k in names}
+        cnt = psum(node_mask.sum().to(torch.float32), axis).clamp_min(1.0)
+        h = x
+        for i in range(num_layers):
+            agg = halo_gine_aggregate(h, edge_emb, plan_dev, axis)
+            h = torch.relu((h + agg) @ p[f"w_{i}"] + p[f"b_{i}"])
+        err = torch.where(node_mask[:, None], h - y,
+                          torch.zeros((), dtype=h.dtype, device=h.device))
+        loss_local = (err * err).sum() / cnt
+        grads = torch.autograd.grad(loss_local, [p[k] for k in names])
+        new = {k: (p[k] - lr * psum(g, axis)).detach()
+               for k, g in zip(names, grads)}
+        return new, psum(loss_local.detach(), axis)
+
+    return step
 
 
 def build_halo_batch(batch: GraphBatch, plan: HaloPlan) -> GraphBatch:

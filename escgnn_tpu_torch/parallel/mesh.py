@@ -27,6 +27,9 @@ import torch
 import torch.distributed as dist
 
 from escgnn_tpu_torch.data.container import GraphBatch
+# batches of one shape stacked along a new leading (device or pool) axis:
+# JAX's `parallel.mesh.stack_batches`, the function the pools stack with
+from escgnn_tpu_torch.data.prefetch import stack_batches  # noqa: F401
 from escgnn_tpu_torch.device import resolve_device
 
 # the mesh `axis_group` resolves names on (the last `make_mesh`)
@@ -141,6 +144,14 @@ def axis_group(axis):
         return dist.group.WORLD
     raise ValueError(f"axes {names}: a group of several axes must span the "
                      f"mesh {mesh.mesh_dim_names}")
+
+
+def check_axes(mesh, axes) -> None:
+    """Raise unless every name in `axes` is an axis of `mesh`."""
+    missing = [a for a in axes if a not in (mesh.mesh_dim_names or ())]
+    if missing:
+        raise ValueError(f"axes {missing} are not axes of the mesh "
+                         f"{mesh.mesh_dim_names}")
 
 
 def axis_size(axis) -> int:

@@ -7,7 +7,8 @@ coordinator's address given, or the environment `torchrun` sets), the
 mesh is the world (`parallel.mesh.make_mesh`), and each rank keeps its
 own rows (`process_shard`) on its own device. With no coordinator and no
 such environment nothing is initialized and the run is one process, as
-in JAX.
+in JAX. `make_global_mesh` is the mesh over every process's device and
+`host_local_to_global` places each process's rows into it.
 """
 
 from __future__ import annotations
@@ -15,9 +16,17 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
-from escgnn_tpu_torch.parallel.mesh import backend_for
+from escgnn_tpu_torch.data.container import GraphBatch
+from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.parallel.mesh import (
+    backend_for,
+    check_axes,
+    make_mesh,
+)
 
 
 def init_multihost(coordinator_address: Optional[str] = None,
@@ -61,3 +70,42 @@ def process_shard(items: Sequence, process_index: Optional[int] = None,
         dist.get_rank() if initialized else 0)
     return list(items[pi::pc])
 
+
+def make_global_mesh(axis_names: Sequence[str] = ("data",),
+                     shape: Optional[Sequence[int]] = None, device="cuda"):
+    """The mesh over every process's device (the world, one device per
+    rank), `shape` factoring it over `axis_names` (by default all ranks on
+    the first axis); with one process it is `parallel.mesh.make_mesh`.
+    Every process must call it with the same arguments."""
+    return make_mesh(None, axis_names, shape, device=device)
+
+
+def host_local_to_global(tree, mesh, spec, device="cuda"):
+    """Each process's local data placed into the global layout of `mesh`:
+    every leaf of `tree` (a tensor, a numpy array, a `GraphBatch`, or a
+    dict / list / tuple of them) is this process's part of a global
+    array split along its leading axis over the mesh axes `spec` names
+    (an axis name, a tuple of names, or None: replicated), as in JAX.
+    JAX assembles one global array across the processes; here a rank
+    holds one device, whose addressable part of that array is exactly
+    its local rows, so each leaf comes back as a tensor on this rank's
+    `device` (the identity on the values, as JAX's single-process
+    device_put is). The ranks of the split axes hold consecutive row
+    blocks in rank order; the collectives that read the global array
+    (`parallel.mesh.psum`, `all_gather`) combine them."""
+    check_axes(mesh, () if spec is None else (
+        (spec,) if isinstance(spec, str) else tuple(spec)))
+    device = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, GraphBatch):
+            return x.to(device)
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        return t.to(device)
+
+    return put(tree)

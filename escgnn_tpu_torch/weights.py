@@ -1,6 +1,7 @@
 """Carry a flax model state (NestedGINEff, PPGN, OgbGNN, NGNN, I2GNN,
 NestedPPGN, BaselineGNN, RGCNBaseline, IDGNN, GINEPlusNetwork, KGNN,
-GPSModel) into the PyTorch model.
+GPSModel, the pooling zoo's TopKPool) into the PyTorch model, and the
+halo toy GINE stack's parameter dict into tensors (`halo_params`).
 
 The flax `params` and `batch_stats` trees arrive as nested dicts of numpy
 arrays (the caller converts; this module imports no JAX). Names map
@@ -24,7 +25,8 @@ one to one, with these rules:
     `eps`, `bias`, the LSTM gates `ii` ... `ho`, RGCN's `w_rel` (R, F, F'),
     GAT's `att_src` / `att_dst` / `att`, PNA's `w_pre` / `b_pre` /
     `w_post` / `b_post`, GINE+'s `v0`, GPS's `fake_edge_emb`,
-    `node_const`, `edge_const`, SAN2's 0-d `gamma`, ...): only a leaf
+    `node_const`, `edge_const`, SAN2's 0-d `gamma`, TopKPool's 1-d
+    score vector `weight`, ...): only a leaf
     named `kernel` is transposed. GPS's local GINE MLP is flax's
     `layer<i>/MLP_0`, and the port keeps it under that name in the layer.
 A model tensor that flax computes as a constant outside `params` (GPS's
@@ -108,3 +110,23 @@ def load_flax_variables(model: torch.nn.Module, params: dict,
                 f"{tuple(dst[k].shape)}")
     model.load_state_dict(
         {k: v.to(dst[k].device, dst[k].dtype) for k, v in src.items()})
+
+
+def halo_params(params: dict, device="cuda") -> dict:
+    """The halo toy GINE stack's parameters (`parallel/halo.py`
+    `make_halo_train_step`), a flat {'w_i': (F, F), 'b_i': (F,)} dict of
+    arrays, as f32 tensors on `device`: names and layouts kept (the
+    layers compute h @ w_i + b_i, as JAX does, so nothing is
+    transposed). Every layer must have both its `w_i` and its `b_i`."""
+    from escgnn_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    names = sorted(params)
+    layers = sorted({int(m.group(2)) for m in
+                     (re.fullmatch(r"([wb])_(\d+)", k) for k in names) if m})
+    want = sorted(f"{p}_{i}" for i in layers for p in "wb")
+    if names != want or layers != list(range(len(layers))):
+        raise ValueError(f"halo params {names}: want w_i and b_i for "
+                         f"layers 0..L-1")
+    return {k: torch.from_numpy(np.array(params[k], np.float32, order="C"))
+            .to(device) for k in names}

@@ -163,6 +163,8 @@ def test_batch_to_device_and_budget_errors(zinc_pair):
     small = BatchSpec.uniform(tg[:1], 1, enc_layout="dedup")
     with pytest.raises(ValueError):
         pad_and_batch(tg, small, device="cpu")
-    with pytest.raises(NotImplementedError):
-        BatchSpec.uniform(tg, 2, enc_layout="flat")
+    # the flat layout is ported; a layout no package has is refused
+    assert BatchSpec.uniform(tg, 2, enc_layout="flat").num_enc_nnz > 0
+    with pytest.raises(ValueError, match="width, dedup or flat"):
+        BatchSpec.uniform(tg, 2, enc_layout="coo")
     assert isinstance(b.senders, torch.Tensor)

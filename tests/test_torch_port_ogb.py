@@ -460,3 +460,54 @@ def test_weight_rules():
                        torch.tensor(k3).permute(2, 1, 0))
     assert torch.equal(sd["conv1.mlp.TorchDense_0.weight"],
                        torch.tensor(k2).T)
+
+
+def test_flag_perturb_equals_jax(mol):
+    """FLAG's input hook: a numpy-drawn (N, emb_dim) `perturb` added to h0
+    gives JAX's eval logits in both BatchNorm modes (rtol 1e-5) and JAX's
+    gradient with respect to the perturbation (within 1e-4 of its norm);
+    a zero perturbation equals none, bit for bit."""
+    jb, tb, _ = mol
+    cfg_kw = dict(BASE, dropout=0.0)
+    jm, params, stats = _init(cfg_kw, jb)
+    m = _port(cfg_kw, params, stats)
+    p = np.random.default_rng(9).normal(
+        size=(tb.num_nodes, BASE["emb_dim"])).astype(np.float32)
+
+    def j_obj(q):
+        return jnp.sum(jm.apply({"params": params, "batch_stats": stats}, jb,
+                                perturb=q) ** 2)
+
+    want_g = np.asarray(jax.grad(j_obj)(jnp.asarray(p)))
+    q = torch.tensor(p, requires_grad=True)
+    m.eval()
+    (m(tb, perturb=q) ** 2).sum().backward()
+    assert np.linalg.norm(q.grad.numpy() - want_g) <= 1e-4 * np.linalg.norm(
+        want_g)
+    with torch.no_grad():
+        assert torch.equal(m(tb, perturb=torch.zeros_like(q)), m(tb))
+    # batch statistics last: that pass updates the running ones
+    for running in (True, False):
+        want = jm.apply({"params": params, "batch_stats": stats}, jb,
+                        use_running_average=running, perturb=jnp.asarray(p),
+                        mutable=False if running else ["batch_stats"])
+        want = np.asarray(want if running else want[0])
+        with torch.no_grad(), bn_statistics(m, use_running_average=running):
+            _close(m(tb, perturb=torch.from_numpy(p)).numpy(), want)
+
+
+def test_skip_node_encoder_equals_jax(mol):
+    """`skip_node_encoder`: h0 is the raw float x (emb_dim = its 9
+    columns), no node encoder exists on either side, and the eval logits
+    equal JAX's at rtol 1e-5."""
+    jb, tb, _ = mol
+    cfg_kw = dict(BASE, emb_dim=9, dropout=0.0, skip_node_encoder=True)
+    jb = jb.replace(x=jb.x.astype(jnp.float32))
+    tb = dataclasses.replace(tb, x=tb.x.to(torch.float32))
+    jm, params, stats = _init(cfg_kw, jb)
+    assert "node_encoder" not in params["gnn_node"]
+    m = _port(cfg_kw, params, stats)
+    assert not any("node_encoder" in k for k in m.state_dict())
+    for running in (True, False):
+        _close(_port_logits(m, tb, running),
+               _jax_logits(jm, params, stats, jb, running))

@@ -18,14 +18,28 @@ rtol 1e-4 / atol 1e-6):
     shard, its multiplicities and its sorted view;
   * halo: the plan bit-equal to JAX's, GINEConv's halo aggregation, and
     one step of the node-level and of the graph-level NestedGINEff
-    against JAX's single-device step;
-  * multihost: degenerate in one process, joined in two, `process_shard`.
+    against JAX's single-device step; the toy GINE stack's aggregation
+    and two of its training steps against JAX's `make_halo_gine_forward`
+    and `make_halo_train_step` on a 2-device CPU mesh (losses at rtol
+    1e-5, parameters at rtol 1e-5 / atol 1e-6);
+  * ep on the flat layout (each rank's copy of the COO entries rebased
+    to its edge slice) against JAX's single-device step;
+  * multihost: degenerate in one process, joined in two, `process_shard`,
+    the global mesh and `host_local_to_global`;
+  * `batch_shardings` / `batch_shardings_2d` against JAX's placements,
+    and `parallel.mesh.stack_batches` against JAX's.
+The two workers' group is on a port rank 0 binds itself, and
+`torchrun --standalone` picks its own port: no port is chosen first and
+bound later, when another process may have taken it. Each torchrun rank
+writes its own log file (`--redirects 3`): on one pipe their lines can
+interleave.
 """
 
+import glob
 import os
-import socket
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +61,14 @@ from escgnn_tpu.parallel.data_parallel import (
     make_dp_train_step as j_dp_step,
     replicate_state as j_replicate_state,
 )
-from escgnn_tpu.parallel.halo import plan_halo_sharding as j_plan_halo
+from escgnn_tpu.parallel import edge_partition as j_ep
+from escgnn_tpu.parallel.halo import (
+    make_halo_gine_forward as j_halo_forward,
+    make_halo_train_step as j_halo_train_step,
+    plan_halo_sharding as j_plan_halo,
+    scatter_edge_payload as j_scatter_edge_payload,
+    shard_plan as j_shard_plan,
+)
 from escgnn_tpu.parallel.mesh import (
     make_mesh as j_make_mesh,
     shard_stacked as j_shard_stacked,
@@ -63,9 +84,12 @@ from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
 from escgnn_tpu_torch.data.container import GraphData
 from escgnn_tpu_torch.data.prefetch import stack_batches
 from escgnn_tpu_torch.featurize import EscConfig, esc_transform
+from escgnn_tpu_torch.data import prefetch
+from escgnn_tpu_torch.parallel import edge_partition as ep
 from escgnn_tpu_torch.parallel import halo
+from escgnn_tpu_torch.parallel import mesh as tmesh
 from escgnn_tpu_torch.parallel.multihost import init_multihost, process_shard
-from escgnn_tpu_torch.weights import flax_to_state_dict
+from escgnn_tpu_torch.weights import flax_to_state_dict, halo_params
 from tests.conftest import random_graph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,12 +155,6 @@ def _jax_sgd_steps(jm, variables, batches):
         loss, g, params, stats = step(params, stats, _jax(b))
         first = first or dict(loss=float(loss), grads=_np(g))
     return dict(first, params=_np(params), stats=_np(stats))
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -234,6 +252,41 @@ def _setup(tmp):
         jhb.receivers, num_segments=jhb.num_nodes)
     ref["halo_agg"] = hx + np.asarray(jagg)
 
+    # the toy GINE stack: two SGD steps on JAX's 2-device "model" mesh
+    F, L = 4, 2
+    toy = dict(num_layers=L, node_mask=np.asarray(jhb.node_mask),
+               x=rng.normal(size=(width.num_nodes, F)).astype(np.float32),
+               y=rng.normal(size=(width.num_nodes, F)).astype(np.float32),
+               edge_emb=rng.normal(size=(width.num_edges, F)).astype(
+                   np.float32),
+               params={})
+    for i in range(L):
+        toy["params"][f"w_{i}"] = (0.3 * rng.normal(size=(F, F))).astype(
+            np.float32)
+        toy["params"][f"b_{i}"] = (0.1 * rng.normal(size=F)).astype(
+            np.float32)
+    hmesh = j_make_mesh(2, axis_names=("model",))
+    jplan = j_plan_halo(jhb, 2)
+    jplan_sh = j_shard_plan(jplan, hmesh)
+    je = jnp.asarray(j_scatter_edge_payload(jplan, toy["edge_emb"]))
+    ref["toy_agg"] = np.asarray(j_halo_forward(hmesh)(
+        jnp.asarray(toy["x"]), je, jplan_sh))
+    jstep = j_halo_train_step(hmesh, num_layers=L, lr=LR)
+    params, losses = jax.tree.map(jnp.asarray, toy["params"]), []
+    for _ in range(2):
+        params, loss = jstep(params, jnp.asarray(toy["x"]), je,
+                             jnp.asarray(toy["y"]),
+                             jnp.asarray(toy["node_mask"]), jplan_sh)
+        losses.append(float(loss))
+    ref["toy_step"] = dict(losses=losses, params=_np(params))
+
+    # ep on the flat layout: JAX's single-device step on the same batch
+    fspec = BatchSpec.uniform(tg, 4, enc_layout="flat")
+    jfspec = JBatchSpec.uniform(jg, 4, enc_layout="flat")
+    flat = pad_and_batch(tg[:4], fspec, device="cpu")
+    ref["ep_flat"] = _jax_sgd_steps(jmodel, variables,
+                                    [j_pad_and_batch(jg[:4], jfspec)])
+
     inp = dict(
         in_dim=10, lr=LR, model_cfg=NODE_CFG, model_state=state,
         graph_cfg=GRAPH_CFG, graph_state=gstate,
@@ -245,14 +298,14 @@ def _setup(tmp):
         halo_node_batch=halo.build_halo_batch(width, plan),
         halo_graph_batch=halo.build_halo_batch(
             pad_and_batch(tgg, hspec, device="cpu"), gplan),
+        toy=toy, ep_flat=flat, global_rows=torch.arange(16.0).reshape(8, 2),
     )
     torch.save(inp, tmp / "in.pt")
-    port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(port), str(r), "2", str(tmp / "in.pt"),
-         str(tmp)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, WORKER, str(r), "2", str(tmp / "in.pt"), str(tmp)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     logs = []
     try:
@@ -315,13 +368,14 @@ def test_dp_pool_epoch_equals_jax(setup):
 
 @pytest.mark.parametrize("case,batch", [("ep_width", "ep_width"),
                                         ("ep_dedup", "ep_dedup"),
+                                        ("ep_flat", "ep_flat"),
                                         ("dp_ep", "ep_dedup")])
 def test_edge_partition_equals_single_device(setup, case, batch):
-    """ep on the width and the dedup layout (the dedup shard carries its
-    own multiplicities and sorted view) and dp_ep over 2 data shards:
-    the global loss, the summed gradients and the state after the step
-    equal JAX's single-device step on the whole batch; both ranks
-    equal."""
+    """ep on the width, dedup and flat layouts (the dedup shard carries
+    its own multiplicities and sorted view, the flat shard its own
+    rebased copy of the COO entries) and dp_ep over 2 data shards: the
+    global loss, the summed gradients and the state after the step equal
+    JAX's single-device step on the whole batch; both ranks equal."""
     want = setup["ref"][case]
     for r in setup["ranks"]:
         got = r[case]
@@ -447,27 +501,160 @@ def test_multihost_joined_and_degenerate(setup):
                                    ["--mesh", "dp", "--multihost"]])
 def test_twin_on_two_ranks_under_torchrun(tmp_path, flags):
     """`run_graphcount` launched as two gloo ranks by torchrun
-    (`torch.distributed.run`): both ranks print the same epoch lines (ep:
-    the single-rank run's losses; dp with per-process train shards: the
-    refreshed BN statistics averaged, so both evaluate alike), and rank 0
-    alone writes the log and the checkpoints."""
+    (`torch.distributed.run`, `--standalone`: it binds its own port):
+    both ranks print the same epoch lines (ep: the single-rank run's
+    losses; dp with per-process train shards: the refreshed BN statistics
+    averaged, so both evaluate alike), each in its own log file, and
+    rank 0 alone writes the run's log and the checkpoints."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     args = ["--device", "cpu", "--num_graphs", "40", "--hidden", "16",
             "--layers", "2", "--batch_size", "8", "--epochs", "2",
             "--data_dir", str(tmp_path / "data")]
+    logs = tmp_path / "logs"
     r = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         "2", "--master_port", str(_free_port()), "-m",
-         "escgnn_tpu_torch.run_graphcount", *args,
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "--log-dir", str(logs), "--redirects", "3",
+         "-m", "escgnn_tpu_torch.run_graphcount", *args,
          "--res_dir", str(tmp_path / "run"), *flags],
         env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("epoch")]
-    assert len(lines) == 4
-    strip = sorted(ln.rsplit(" (", 1)[0] for ln in lines)
-    assert strip[0] == strip[1] and strip[2] == strip[3]
+    out = {rank: "".join(open(f).read() for f in sorted(glob.glob(
+        str(logs / "**" / str(rank) / "std*.log"), recursive=True)))
+        for rank in (0, 1)}
+    assert r.returncode == 0, (r.stderr[-3000:] + out[0][-2000:]
+                               + out[1][-2000:])
+    lines = {rank: [ln.rsplit(" (", 1)[0] for ln in text.splitlines()
+                    if ln.startswith("epoch")]
+             for rank, text in out.items()}
+    assert len(lines[0]) == 2 and lines[0] == lines[1], lines
     log = (tmp_path / "run" / "log.txt").read_text().splitlines()
     assert [ln.rsplit(" (", 1)[0] for ln in log if ln.startswith("epoch")] \
-        == [strip[0], strip[2]]
+        == lines[0]
     assert sorted(os.listdir(tmp_path / "run" / "ckpt")) == ["1.pt", "2.pt"]
+
+
+def test_flat_edge_shards_rebase_their_entries(setup):
+    """Each rank keeps all K flat entries; those of its edge slice point
+    at its local edge ids with their counts, the others carry count 0;
+    the ranks' counts add up to the batch's."""
+    whole = setup["inp"]["ep_flat"].tensors()
+    E = whole["edge_mask"].shape[0]
+    total = torch.zeros_like(whole["enc_flat_cnt"])
+    for d, r in enumerate(setup["ranks"]):
+        sh = r["ep_flat"]["shard"]
+        edge, cnt = whole["enc_flat_edge"].long(), whole["enc_flat_cnt"]
+        mine = (edge >= d * E // 2) & (edge < (d + 1) * E // 2)
+        assert torch.equal(sh["enc_flat_idx"], whole["enc_flat_idx"])
+        assert torch.equal(sh["enc_flat_edge"][mine].long(),
+                           edge[mine] - d * E // 2)
+        assert torch.equal(sh["enc_flat_cnt"][mine], cnt[mine])
+        assert not sh["enc_flat_cnt"][~mine].any()
+        total += sh["enc_flat_cnt"]
+    assert torch.equal(total, whole["enc_flat_cnt"])
+
+
+def test_halo_toy_stack_equals_jax(setup):
+    """The toy GINE stack under the halo plan: each rank's aggregation
+    rows put together equal JAX's `make_halo_gine_forward`; two SGD steps
+    of `make_halo_train_step` (parameters carried by
+    `weights.halo_params`) give JAX's losses and parameters; both ranks
+    equal."""
+    want = setup["ref"]["toy_step"]
+    got = torch.cat([r["toy_agg"] for r in setup["ranks"]]).numpy()
+    np.testing.assert_allclose(got, setup["ref"]["toy_agg"], rtol=1e-5,
+                               atol=1e-6)
+    for r in setup["ranks"]:
+        np.testing.assert_allclose(r["toy_step"]["losses"], want["losses"],
+                                   rtol=1e-5)
+        _close_tree({k: v.numpy() for k, v in r["toy_step"]["params"].items()},
+                    want["params"], 1e-5, 1e-6)
+    a, b = (r["toy_step"]["params"] for r in setup["ranks"])
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_halo_params_round_trip(setup):
+    """`weights.halo_params` keeps every name, value and layout of the toy
+    stack's dict, and refuses a dict missing a layer's bias."""
+    params = setup["inp"]["toy"]["params"]
+    got = halo_params(params, "cpu")
+    assert sorted(got) == sorted(params)
+    for k, v in params.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v)
+    with pytest.raises(ValueError, match="w_i and b_i"):
+        halo_params({"w_0": params["w_0"]}, "cpu")
+
+
+def test_global_mesh_and_host_local_to_global(setup):
+    """Two ranks: the global mesh spans the world on "data"; each rank's
+    strided rows placed by `host_local_to_global` come back gathered in
+    rank order, the rows of the whole array. One process: JAX's
+    `host_local_to_global` is a device_put; the port's gives the same
+    values on the CPU."""
+    from escgnn_tpu.parallel import multihost as j_multihost
+
+    rows = setup["inp"]["global_rows"]
+    for r in setup["ranks"]:
+        assert r["global_mesh"] == (("data",), 2)
+        g = r["global_rows"]
+        assert torch.equal(g[0], rows[0::2]) and torch.equal(g[1], rows[1::2])
+    jmesh = j_make_mesh(1)
+    want = j_multihost.host_local_to_global(
+        {"a": np.arange(6.0).reshape(3, 2)}, jmesh,
+        jax.sharding.PartitionSpec("data"))
+    fake = types.SimpleNamespace(mesh_dim_names=("data",))
+    from escgnn_tpu_torch.parallel.multihost import host_local_to_global
+
+    got = host_local_to_global({"a": np.arange(6.0).reshape(3, 2)}, fake,
+                               "data", device="cpu")
+    np.testing.assert_array_equal(got["a"].numpy(), np.asarray(want["a"]))
+    with pytest.raises(ValueError, match="not axes"):
+        host_local_to_global({}, fake, "model", device="cpu")
+
+
+def _jax_placement(sharding) -> str:
+    spec = tuple(sharding.spec)
+    if not spec:
+        return "replicated"
+    return "rows" if spec == ("data",) else "edges"
+
+
+@pytest.mark.parametrize("layout", ["ep_width", "ep_dedup", "ep_flat"])
+def test_batch_shardings_equal_jax(setup, layout):
+    """`batch_shardings` and `batch_shardings_2d` place every tensor as
+    JAX's do: split over the edge axes, over the data axis, or whole;
+    the port's "local" tensors (the dedup multiplicities and sorted view,
+    the flat entries) are whole in JAX too."""
+    batch = setup["inp"][layout]
+    host = {k: v.numpy() for k, v in batch.tensors().items()}
+    from escgnn_tpu.data.container import GraphBatch as JGraphBatch
+
+    jb = JGraphBatch(**host)
+    mesh1 = types.SimpleNamespace(mesh_dim_names=("model",))
+    mesh2 = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    jmesh1 = j_make_mesh(2, axis_names=("model",))
+    jmesh2 = j_make_mesh(shape=(1, 2), axis_names=("data", "model"))
+    for got, want in (
+            (ep.batch_shardings(batch, mesh1),
+             j_ep.batch_shardings(jb, jmesh1)),
+            (ep.batch_shardings_2d(batch, mesh2),
+             j_ep.batch_shardings_2d(jb, jmesh2))):
+        assert set(got) == set(host)
+        for k, place in got.items():
+            jplace = _jax_placement(getattr(want, k))
+            assert (place if place != "local" else "replicated") == jplace, k
+    with pytest.raises(ValueError, match="not axes"):
+        ep.batch_shardings(batch, mesh2, "edges")
+
+
+def test_stack_batches_is_the_pools_and_equals_jax(setup):
+    """`parallel.mesh.stack_batches` is `data.prefetch.stack_batches`, and
+    stacks JAX's arrays."""
+    assert tmesh.stack_batches is prefetch.stack_batches
+    tb = [setup["inp"]["ep_width"], setup["inp"]["ep_width"]]
+    got = tmesh.stack_batches(tb)
+    host = [{k: v.numpy() for k, v in b.tensors().items()} for b in tb]
+    want = j_stack_batches(host)
+    for k, v in got.tensors().items():
+        np.testing.assert_array_equal(v.numpy(), want[k])

@@ -1,8 +1,11 @@
 """One rank of the parallel-mode checks of `test_torch_port_parallel.py`:
 
-    python tests/torch_parallel_worker.py <port> <rank> <world> <in.pt> <out_dir>
+    python tests/torch_parallel_worker.py <rank> <world> <in.pt> <out_dir>
 
-Joins a gloo group of `world` ranks on localhost:<port>, runs every case
+Joins a gloo group of `world` ranks on localhost (rank 0 binds a free
+port itself and publishes it in `<out_dir>/port`, where the other ranks
+read it, so no other process can take the port between its choice and
+its bind), runs every case
 of `<in.pt>` (made by the test from numpy seeds, the weights carried from
 a flax init) through the port's parallel modes on CPU tensors and writes
 this rank's results to `<out_dir>/rank<rank>.pt`. Imports the port only,
@@ -11,6 +14,7 @@ never JAX.
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -28,14 +32,18 @@ from escgnn_tpu_torch.parallel import data_parallel as dpm  # noqa: E402
 from escgnn_tpu_torch.parallel import edge_partition as ep  # noqa: E402
 from escgnn_tpu_torch.parallel import halo  # noqa: E402
 from escgnn_tpu_torch.parallel.mesh import (  # noqa: E402
+    all_gather,
     axis_index,
     make_mesh,
     shard_stacked,
 )
 from escgnn_tpu_torch.parallel.multihost import (  # noqa: E402
+    host_local_to_global,
     init_multihost,
+    make_global_mesh,
     process_shard,
 )
+from escgnn_tpu_torch.weights import halo_params  # noqa: E402
 from escgnn_tpu_torch.train.loop import (  # noqa: E402
     l1_graph_loss,
     l1_node_loss,
@@ -68,14 +76,40 @@ class _PassThrough(torch.nn.Module):
         return x
 
 
-def run(rank: int, world: int, port: int, inp: dict) -> dict:
+def _store(rank: int, world: int, out_dir: str):
+    """The group's TCP store, on a port rank 0 binds and publishes in
+    `<out_dir>/port`."""
+    path = os.path.join(out_dir, "port")
+    if rank == 0:
+        store = dist.TCPStore("localhost", 0, world, True,
+                              wait_for_workers=False)
+        with open(path + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(path + ".tmp", path)
+        return store
+    deadline = time.time() + 120
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"rank 0 published no port in {path}")
+        time.sleep(0.05)
+    with open(path) as f:
+        return dist.TCPStore("localhost", int(f.read()), world, False)
+
+
+def run(rank: int, world: int, inp: dict, out_dir: str) -> dict:
     out = {}
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", store=_store(rank, world, out_dir),
                             world_size=world, rank=rank)
     # multihost: an initialized group is joined, not joined again
     out["multihost"] = init_multihost()
     out["shard"] = process_shard(list(range(7)))
     lr = inp["lr"]
+    mesh = make_global_mesh(("data",), device="cpu")
+    rows = host_local_to_global(
+        {"rows": inp["global_rows"][rank::world]}, mesh, "data",
+        device="cpu")["rows"]
+    out["global_mesh"] = (tuple(mesh.mesh_dim_names), mesh.size())
+    out["global_rows"] = all_gather(rows, "data")
 
     # --- dp: one step on this rank's batch, then a pool epoch ---
     mesh = make_mesh(0, ("data",), device="cpu")
@@ -116,6 +150,12 @@ def run(rank: int, world: int, port: int, inp: dict) -> dict:
     losses = ep.make_ep_pool_train_step(model, opt, l1_node_loss, pool)(
         pool, inp["ep_order"])
     out["ep_pool"] = dict(losses=losses.tolist(), state=_state(model))
+    model = _model(inp)
+    opt = _sgd(model, lr)
+    shard = ep.shard_batch_by_edges(inp["ep_flat"], mesh, "model")
+    loss = ep.make_ep_train_step(model, opt, l1_node_loss)(shard)
+    out["ep_flat"] = dict(loss=float(loss), grads=_grads(model),
+                          state=_state(model), shard=shard.tensors())
 
     # --- halo: GINEConv's exchange and aggregation, then model steps ---
     plan = inp["halo_plan"]
@@ -136,6 +176,23 @@ def run(rank: int, world: int, port: int, inp: dict) -> dict:
         dpm.check_backend(torch.device("cuda"))
     except ValueError as e:
         out["graphed_gloo"] = str(e)
+    # the toy GINE stack: its aggregation and one training step
+    toy = inp["toy"]
+    plan_dev = halo.shard_plan(plan, mesh, "model", device="cpu")
+    rows = slice(d * nps, (d + 1) * nps)
+    toy_emb = torch.from_numpy(halo.scatter_edge_payload(
+        plan, toy["edge_emb"])[d])
+    out["toy_agg"] = halo.make_halo_gine_forward(mesh, "model")(
+        torch.from_numpy(toy["x"][rows]), toy_emb, plan_dev)
+    step = halo.make_halo_train_step(mesh, toy["num_layers"], lr)
+    params, losses = halo_params(toy["params"], "cpu"), []
+    for _ in range(2):
+        params, loss = step(params, torch.from_numpy(toy["x"][rows]),
+                            toy_emb, torch.from_numpy(toy["y"][rows]),
+                            torch.from_numpy(toy["node_mask"][rows]),
+                            plan_dev)
+        losses.append(float(loss))
+    out["toy_step"] = dict(losses=losses, params=params)
     for name, key, gl in (("halo_node", "model", None),
                           ("halo_graph", "graph", l1_graph_loss)):
         model = _model(inp, key)
@@ -160,11 +217,11 @@ def run(rank: int, world: int, port: int, inp: dict) -> dict:
 
 
 def main():
-    port, rank, world = (int(v) for v in sys.argv[1:4])
+    rank, world = (int(v) for v in sys.argv[1:3])
     torch.set_num_threads(1)
-    inp = torch.load(sys.argv[4], weights_only=False)
-    out = run(rank, world, port, inp)
-    torch.save(out, os.path.join(sys.argv[5], f"rank{rank}.pt"))
+    inp = torch.load(sys.argv[3], weights_only=False)
+    out = run(rank, world, inp, sys.argv[4])
+    torch.save(out, os.path.join(sys.argv[4], f"rank{rank}.pt"))
 
 
 if __name__ == "__main__":
