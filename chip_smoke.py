@@ -98,7 +98,15 @@ against its plain PyTorch version on the card, then drives these paths:
     side), `[flat_bf16_bwd]` (the bf16 table backward against f32),
     `[pool_zoo]` (TopKPool -> DiffPool -> graclus pooling, card against
     CPU) and `[ogb_flag]` (OgbGNN's FLAG perturbation: zeros equal none
-    bit for bit, a random one gives a gradient).
+    bit for bit, a random one gives a gradient);
+  * slice 14: `[bench]`, the bench twin (`python -m
+    escgnn_tpu_torch.bench`) at full size: bench.py's ten lines, each
+    one batch timed as the graphed pool step, their JSON lines checked
+    and each printed on a `[bench_<line>]` line with the first graphed
+    loss held to the eager step, K1's nodes per captured step and its
+    launches. The phases above that step a bench batch (`[gps_bench]`,
+    `[gps_pep]`, `[flat]`'s GPS step, the OGB and GINE+ bench steps and
+    `[zoo_registry]`'s k123) read the twin's line table.
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -187,17 +195,6 @@ def _check_close(name, got, want, rtol, atol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
                                msg=lambda m: f"{name}: {m}")
     return err
-
-
-def flagship_config():
-    from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEffConfig
-
-    return NestedGINEffConfig(
-        hidden=256, num_layers=5, dropout=0.0, act="elu", graph_pred=True,
-        pool="add", use_x_embedding_jk=False, head_order="dropout_act",
-        node_embed_vocab=100, node_embed_dim=32,
-        edge_embed_vocab=100, edge_embed_dim=32, compute_dtype="bfloat16",
-    )
 
 
 def _device_events(prof, name_part: str = ""):
@@ -641,6 +638,7 @@ def check_small_reference(dev):
     """The port on the card (kernels) against the port on the CPU (plain
     versions) on a small f32 input: train-mode outputs and every
     gradient, under both z impls."""
+    from escgnn_tpu_torch.bench import flagship_config
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
     from escgnn_tpu_torch.data.molecules import synthetic_zinc
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
@@ -1520,33 +1518,22 @@ def time_ogb_bench_step(dev):
     graphed pool step replayed over that batch and as eager steps, each
     from the same initial weights; the profiler reads the graphed step's
     busy time, device events and K1 launches."""
-    from escgnn_tpu_torch.data.batching import BatchSpec
-    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
+    from escgnn_tpu_torch import bench
     from escgnn_tpu_torch.data.prefetch import stack_split
-    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
-    from escgnn_tpu_torch.models.ogb_gnn import OgbGNN, OgbGNNConfig
-    from escgnn_tpu_torch.train.loop import bce_graph_loss
 
-    graphs = featurize_many(synthetic_ogb_mol(32, seed=0, num_tasks=1),
-                            EscConfig(h=4, use_rd=True, self_loop=True),
-                            num_workers=2)
-    spec = BatchSpec.uniform(graphs, 32, enc_layout="dedup")
+    line = bench_line(bench.OGB)
+    graphs, spec = line.graphs, line.spec
     pool = stack_split(graphs, spec, dev)
-    cfg = OgbGNNConfig(num_tasks=1, num_layers=6, emb_dim=300, dropout=0.0,
-                       virtual_node=True, compute_dtype="bfloat16")
-    fields = _bench_step(
-        lambda: OgbGNN(cfg, device=dev,
-                       generator=torch.Generator().manual_seed(0)),
-        pool, bce_graph_loss, kernel="segsum_kernel")
+    fields = _bench_step(lambda: line.model(dev), pool, line.loss_fn,
+                         kernel="segsum_kernel")
     fields["k1_per_graphed_step"] = fields.pop("kernel_per_graphed_step")
     if fields["k1_per_graphed_step"] != 1:
         raise AssertionError(f"ogb bench step: K1 "
                              f"{fields['k1_per_graphed_step']} times per "
                              f"step")
-    real_edges = sum(g.num_edges for g in graphs)
-    return dict(graphs=32, N=spec.num_nodes, E=spec.num_edges,
-                R=spec.num_enc_rows, real_edges=real_edges, **fields,
-                graphed_real_edges_per_s=real_edges / (
+    return dict(graphs=len(graphs), N=spec.num_nodes, E=spec.num_edges,
+                R=spec.num_enc_rows, real_edges=line.real_edges, **fields,
+                graphed_real_edges_per_s=line.real_edges / (
                     fields["graphed_ms_per_step"] / 1e3))
 
 
@@ -2041,15 +2028,9 @@ def run_ogb_gineplus_twin(work: str, smi: str, dev):
     initial weights scaled by (1 + 1e-7 N(0, 1)). Then the bench's GINE+
     line (`bench.py:625-640`: 32 graphs, hidden 100 x 6, k 3, bf16,
     dropout 0) graphed and eager. No port kernel lies on this path."""
+    from escgnn_tpu_torch import bench as bench_twin
     from escgnn_tpu_torch import run_ogb_mol
-    from escgnn_tpu_torch.data.batching import BatchSpec
-    from escgnn_tpu_torch.data.molecules import synthetic_ogb_mol
     from escgnn_tpu_torch.data.prefetch import stack_split
-    from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
-    from escgnn_tpu_torch.models.gine_plus import (
-        GINEPlusConfig,
-        GINEPlusNetwork,
-    )
     from escgnn_tpu_torch.train.loop import bce_graph_loss
 
     argv = ["--model", "GINEPlus", "--num_graphs", "640", "--epochs", "3",
@@ -2086,19 +2067,13 @@ def run_ogb_gineplus_twin(work: str, smi: str, dev):
     spread = _perturbed_spread(lambda: run_ogb_mol.build_model(args0, dev),
                                bce_graph_loss, train, spec, args.lr, dev)
 
-    graphs = [make_multihop_edges(g, k=3)
-              for g in synthetic_ogb_mol(32, seed=0, num_tasks=1)]
-    bspec = BatchSpec.uniform(graphs, 32)
-    cfg = GINEPlusConfig(hidden=100, out_dim=1, num_layers=6, dropout=0.0,
-                         k=3, virtual_node=True, compute_dtype="bfloat16")
-    bench = _bench_step(
-        lambda: GINEPlusNetwork(cfg, device=dev,
-                                generator=torch.Generator().manual_seed(0)),
-        stack_split(graphs, bspec, dev), bce_graph_loss)
-    real_edges = sum(g.num_edges for g in graphs)
-    bench.update(graphs=32, N=bspec.num_nodes, E=bspec.num_edges,
-                 real_multihop_edges=real_edges,
-                 graphed_real_edges_per_s=real_edges / (
+    line = bench_line(bench_twin.GINE_PLUS)
+    bench = _bench_step(lambda: line.model(dev),
+                        stack_split(line.graphs, line.spec, dev),
+                        line.loss_fn)
+    bench.update(graphs=len(line.graphs), N=line.spec.num_nodes,
+                 E=line.spec.num_edges, real_multihop_edges=line.real_edges,
+                 graphed_real_edges_per_s=line.real_edges / (
                      bench["graphed_ms_per_step"] / 1e3))
     _log("run_ogb_mol_ginep", seconds=round(seconds, 3), graphs=640,
          steps_per_epoch=16, emb=args.emb_dim, layers=args.num_layer,
@@ -2191,9 +2166,10 @@ def _zoo_data():
     types and a two-class label; their h-2 node copies; the same
     molecules with type ids and a float target; multihop OGB molecules;
     QM9 molecules with distance edges; 16 QM9 molecules with h-3 copies
-    and their 2- and 3-set graphs, the bench's k123 shape)."""
+    and their 2- and 3-set graphs: the bench twin's k123 line)."""
     import numpy as np
 
+    from escgnn_tpu_torch import bench
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
     from escgnn_tpu_torch.data.container import GraphData
     from escgnn_tpu_torch.data.molecules import (
@@ -2204,7 +2180,6 @@ def _zoo_data():
         append_distance_edge_attr,
         synthetic_qm9,
     )
-    from escgnn_tpu_torch.featurize.kset import attach_kset_graphs
     from escgnn_tpu_torch.featurize.multihop import make_multihop_edges
     from escgnn_tpu_torch.featurize.node_subgraphs import (
         NodeSubgraphConfig,
@@ -2227,14 +2202,12 @@ def _zoo_data():
     for g in qm9:
         g.y = np.asarray(g.y, np.float32)[:1]
     qm9 = [append_distance_edge_attr(g) for g in qm9]
-    kset = [attach_kset_graphs(create_node_subgraphs(
-        g, NodeSubgraphConfig(h=3, use_rd=True)), ks=(2, 3), malkin=True)
-        for g in qm9]
+    k123 = bench_line(bench.K123)
     ogb = [make_multihop_edges(g, 3)
            for g in synthetic_ogb_mol(16, seed=0, num_tasks=1)]
     return dict(tu=host(tu), copies=host(copies), zinc=host(zinc),
-                ogb=host(ogb), qm9=host(qm9), kset=host(kset),
-                kset_graphs=kset)
+                ogb=host(ogb), qm9=host(qm9), kset=k123.host_batch(),
+                kset_line=k123)
 
 
 def check_zoo_registry(dev):
@@ -2259,8 +2232,9 @@ def check_zoo_registry(dev):
     )
 
     data = _zoo_data()
-    b = {k: v.to(dev) for k, v in data.items() if k != "kset_graphs"}
-    g0 = data["kset_graphs"][0]
+    k123 = data.pop("kset_line")
+    b = {k: v.to(dev) for k, v in data.items()}
+    g0 = k123.graphs[0]
     kgnn_kw = dict(x_dim=g0.x.shape[1], edge_dim=g0.edge_attr.shape[1],
                    use_rd=True, use_pos=True)
     cases = []
@@ -2427,69 +2401,15 @@ GPS_VARIANTS = {
 }
 
 
-def _bench_chain_graphs(num, seed, nodes, chords, span, x_vocab, y_width,
-                        h):
-    """The bench's chain-shaped graphs (a copy of `bench.py`'s
-    generators): per graph n in `nodes` nodes, a path and `chords(n)`
-    chords of a span in `span`, both directions, x in [0, x_vocab), bond
-    types 1-3, `y_width` normal targets; featurized with ESC h `h` and the
-    SPD bias."""
-    import numpy as np
+def bench_line(metric: str, smoke: bool = False):
+    """The bench twin's line `metric` (`escgnn_tpu_torch/bench.py`
+    `bench_line`: its graphs, spec, model config and loss), its graph set
+    built here with 2 forked featurizer workers: the one source of the
+    bench's shapes for the phases that step a bench batch."""
+    from escgnn_tpu_torch import bench
 
-    from escgnn_tpu_torch.data.container import GraphData
-    from escgnn_tpu_torch.featurize import EscConfig, featurize_many
-    from escgnn_tpu_torch.featurize.spd import attach_attn_bias
-
-    rng = np.random.default_rng(seed)
-    graphs = []
-    for _ in range(num):
-        n = int(rng.integers(*nodes))
-        a = np.arange(n - 1)
-        extra = chords(n)
-        c1 = rng.integers(0, n, extra)
-        c2 = (c1 + rng.integers(*span, extra)) % n
-        src = np.concatenate([a, c1])
-        dst = np.concatenate([a + 1, c2])
-        keep = src != dst
-        src, dst = src[keep], dst[keep]
-        ei = np.stack([np.concatenate([src, dst]),
-                       np.concatenate([dst, src])]).astype(np.int32)
-        graphs.append(GraphData(
-            num_nodes=n, edge_index=ei,
-            x=rng.integers(0, x_vocab, n).astype(np.int32)[:, None],
-            edge_attr=rng.integers(1, 4, ei.shape[1]).astype(np.int32),
-            y=rng.normal(size=(y_width,)).astype(np.float32)))
-    return [attach_attn_bias(g) for g in
-            featurize_many(graphs, EscConfig(h=h, use_rd=True,
-                                             self_loop=True))]
-
-
-def bench_zinc_graphs(num: int = 32, seed: int = 0):
-    """The GPS ZINC bench shape (`bench.py:503-515`, molecules of
-    `bench.py` `_raw_zinc_graphs`): 18-30 atoms, n // 6 chords, 28 atom
-    types, ESC h 3."""
-    return _bench_chain_graphs(num, seed, (18, 30), lambda n: max(2, n // 6),
-                               (2, 5), 28, 1, 3)
-
-
-def bench_pep_graphs(num: int = 16, seed: int = 0):
-    """The GPS peptides bench shape (`bench.py:656-670`, graphs of
-    `bench.py` `make_pep_graphs`): 120-160 nodes, n // 4 chords, 11
-    targets, ESC h 2."""
-    return _bench_chain_graphs(num, seed, (120, 160), lambda n: n // 4,
-                               (2, 9), 20, 11, 2)
-
-
-def gps_bench_config(shape: str):
-    """The bench's GPS models: ZINC 64 x 4 add-pooled to 1 output,
-    peptides 96 x 10 mean-pooled to 11; 4 heads, ESC and the SPD bias."""
-    from escgnn_tpu_torch.models.gps import GPSConfig
-
-    if shape == "zinc":
-        return GPSConfig(dim_h=64, num_layers=4, num_heads=4, use_esc=True,
-                         use_attn_bias=True, pool="add", out_dim=1)
-    return GPSConfig(dim_h=96, num_layers=10, num_heads=4, use_esc=True,
-                     use_attn_bias=True, pool="mean", out_dim=11)
+    gsets = bench.make_graph_sets((metric,), smoke, num_workers=2)
+    return bench.bench_line(metric, gsets, smoke)
 
 
 def check_k1_gps(batch, H: int, dev, label: str):
@@ -2542,8 +2462,7 @@ def run_gps_bench(shape: str, dev, reps: int):
     per step in both; K1 against its plain version at the step's
     (E, dim_h). Returns (K1's launches in the graphed epoch, K1's
     numbers at this shape)."""
-    from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
-    from escgnn_tpu_torch.models.gps import GPSModel
+    from escgnn_tpu_torch import bench
     from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
@@ -2553,14 +2472,12 @@ def run_gps_bench(shape: str, dev, reps: int):
 
     label = "gps_bench" if shape == "zinc" else "gps_pep"
     t0 = time.perf_counter()
-    graphs = bench_zinc_graphs() if shape == "zinc" else bench_pep_graphs()
+    line = bench_line(bench.GPS_ZINC if shape == "zinc" else bench.GPS_PEP)
     data_s = time.perf_counter() - t0
-    spec = BatchSpec.uniform(graphs, len(graphs), enc_layout="dedup")
-    batch = pad_and_batch(graphs, spec, device=dev)
-    cfg = gps_bench_config(shape)
+    graphs, spec, cfg = line.graphs, line.spec, line.config
+    batch = line.host_batch().to(dev)
     k1 = check_k1_gps(batch, cfg.dim_h, dev, label)
-    model = GPSModel(cfg, device=dev,
-                     generator=torch.Generator().manual_seed(0))
+    model = line.model(dev)
     # eager launches of K1: one per layer per step
     expand_cuda.launches = 0
     train_step(copy.deepcopy(model),
@@ -3823,8 +3740,7 @@ def run_flat(graphs, dev, smi) -> dict:
     to the f32 one within 1e-2 of its norm (bf16 keeps 8 bits of each
     gradient entry) and not equal to it; f32 set back. Returns K1's
     launches in the two dedup epochs."""
-    from escgnn_tpu_torch import run_zinc
-    from escgnn_tpu_torch.models.gps import GPSModel
+    from escgnn_tpu_torch import bench, run_zinc
     from escgnn_tpu_torch.ops import zemb
     from escgnn_tpu_torch.train.loop import l1_graph_loss
 
@@ -3832,10 +3748,9 @@ def run_flat(graphs, dev, smi) -> dict:
     k1 = {}
     flat_grads, flat_batch, k1["flat_flagship_dedup"] = _flat_pair(
         "flagship", lambda: _zinc_model(dev), graphs, args.lr, dev, smi)
+    gps = bench_line(bench.GPS_ZINC)
     _, _, k1["flat_gps_dedup"] = _flat_pair(
-        "gps", lambda: GPSModel(gps_bench_config("zinc"), device=dev,
-                                generator=torch.Generator().manual_seed(0)),
-        bench_zinc_graphs(), LR, dev, smi)
+        "gps", lambda: gps.model(dev), gps.graphs, LR, dev, smi)
 
     zemb.set_backward_matmul_dtype(torch.bfloat16)
     try:
@@ -4176,6 +4091,125 @@ def run_ogb_flag(dev, smi) -> None:
          card=json.dumps(smi), ok=True)
 
 
+# ---------------------------------------------------------------------------
+# the bench twin: bench.py's ten lines as graphed train steps
+# ---------------------------------------------------------------------------
+
+# K1's nodes in each bench line's captured step: the flagship's and OGB's
+# one dedup expansion, GPS's one per layer; the other six lines have no
+# dedup rows (PPGN keeps JAX's default z impl and pool: no port kernel)
+BENCH_K1_NODES = {"flagship": 1, "ogb": 1, "gps": 4, "gps_pep": 10}
+
+
+def _bench_short(metric: str) -> str:
+    from escgnn_tpu_torch import bench
+
+    return {bench.PPGN: "ppgn", bench.GPS_ZINC: "gps", bench.OGB: "ogb",
+            bench.I2GNN: "i2gnn", bench.NGNN: "ngnn",
+            bench.NESTED_PPGN: "nppgn", bench.GINE_PLUS: "ginep",
+            bench.K123: "k123", bench.GPS_PEP: "gps_pep",
+            bench.FLAGSHIP: "flagship"}[metric]
+
+
+def run_bench(dev, smi) -> dict:
+    """`[bench]`: the bench twin (`python -m escgnn_tpu_torch.bench`) at
+    full size, its `main` run in this process under `_GraphLedger.watch()`
+    with BENCH_SMOKE, BENCH_ONLY and BENCH_PROFILE_DIR unset. Its graph
+    sets are featurized by 8 forked workers while this process holds its
+    CUDA context: the workers run numpy and the native core only, as the
+    earlier twins' do. Holds: ten JSON lines, the flagship last, the
+    metric names in bench.py's order, each with every field of the twin's
+    `perf_fields` and `metric`, `unit`, `vs_baseline` (null) and
+    `device` (this card's nvidia-smi line); `value` and `ms_per_step`
+    finite and positive, `flops_per_step` positive, `mfu` in (0, 1];
+    every loss finite; the first graphed step's loss equal to the eager
+    step from the same state (the one the FLOP count ran) at rel 1e-5;
+    one graph captured per line, replayed once per step of its windows;
+    K1's nodes per captured step (`BENCH_K1_NODES`, none on the other six
+    lines), its launches the nodes times the replays. Prints one
+    `[bench_<line>]` line each and `[bench]`; returns K1's launches per
+    line that runs it, by `bench_<line>`."""
+    import io
+
+    from escgnn_tpu_torch import bench
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    saved = {k: os.environ.pop(k, None)
+             for k in ("BENCH_SMOKE", "BENCH_ONLY", "BENCH_PROFILE_DIR")}
+    ledger = _GraphLedger()
+    out = io.StringIO()
+    expand_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with ledger.watch(), contextlib.redirect_stdout(out):
+            results = bench.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    seconds = time.perf_counter() - t0
+    eager_k1 = expand_cuda.launches
+    printed = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    if [p["metric"] for p in printed] != list(bench.METRICS):
+        raise AssertionError(f"bench: printed {[p.get('metric') for p in printed]}"
+                             f", not bench.py's ten metrics in order")
+    if printed != [r.fields for r in results]:
+        raise AssertionError("bench: the printed lines are not main's")
+    if len(ledger.dots) != len(results):
+        raise AssertionError(f"bench: {len(ledger.dots)} graphs captured "
+                             f"for {len(results)} lines")
+    want_keys = set(bench.perf_fields([1.0], 1, 1, None, None)) | {
+        "metric", "unit", "vs_baseline", "device"}
+    paths = {}
+    for i, res in enumerate(results):
+        f = res.fields
+        short = _bench_short(f["metric"])
+        keys = want_keys | ({"vs_r01"} if short == "flagship" else set())
+        if set(f) != keys:
+            raise AssertionError(f"bench {short}: fields {sorted(f)}")
+        if f["vs_baseline"] is not None or f.get("vs_r01") is not None:
+            raise AssertionError(f"bench {short}: a TPU denominator")
+        if f["device"] != smi:
+            raise AssertionError(f"bench {short}: device {f['device']!r}")
+        if not (math.isfinite(f["value"]) and f["value"] > 0
+                and math.isfinite(f["ms_per_step"]) and f["ms_per_step"] > 0
+                and f["flops_per_step"] and f["flops_per_step"] > 0):
+            raise AssertionError(f"bench {short}: {f}")
+        if f["mfu"] is None or not 0 < f["mfu"] <= 1:
+            raise AssertionError(f"bench {short}: mfu {f['mfu']}")
+        losses = [res.first_loss, res.eager_loss] + [
+            v for w in res.window_losses for v in w]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"bench {short}: non-finite losses")
+        first = res.window_losses[0][0]
+        rel = abs(first - res.eager_loss) / abs(res.eager_loss)
+        if rel > 1e-5:
+            raise AssertionError(f"bench {short}: first graphed loss {first}"
+                                 f" != eager {res.eager_loss}")
+        replays = sum(len(w) for w in res.window_losses)
+        if ledger.replays[i] != replays:
+            raise AssertionError(f"bench {short}: {ledger.replays[i]} "
+                                 f"replays for {replays} steps")
+        nodes = _dot_nodes(ledger.dots[i], "segsum_kernel")
+        if nodes != BENCH_K1_NODES.get(short, 0):
+            raise AssertionError(f"bench {short}: K1 {nodes} times in the "
+                                 f"captured step, not "
+                                 f"{BENCH_K1_NODES.get(short, 0)}")
+        k1 = nodes * ledger.replays[i]
+        if nodes:
+            paths[f"bench_{short}"] = k1
+        _log(f"bench_{short}", **f, steps_per_window=len(res.window_losses[0]),
+             replays=replays, graph_kernel_nodes=_dot_nodes(ledger.dots[i],
+                                                            "{KERNEL"),
+             k1_nodes=nodes, k1_launches=k1, first_loss=res.first_loss,
+             eager_loss=res.eager_loss, first_graphed_loss=first,
+             first_graphed_rel=rel, last_loss=res.window_losses[-1][-1],
+             ok=True)
+    _log("bench", lines=len(results), seconds=round(seconds, 3),
+         k1_eager_launches=eager_k1, k1_graphed=json.dumps(paths),
+         card=json.dumps(smi), ok=True)
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4186,6 +4220,7 @@ def main() -> int:
     sys.path.insert(0, root)
     os.chdir(root)  # the expressiveness data is read from data/
     from escgnn_tpu_torch import _build
+    from escgnn_tpu_torch.bench import flagship_config
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
     from escgnn_tpu_torch.data.molecules import synthetic_zinc
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
@@ -4378,6 +4413,8 @@ def main() -> int:
     k1_paths.update(run_flat(graphs, dev, smi))
     run_pool_zoo(dev, smi)
     run_ogb_flag(dev, smi)
+    # 15. the bench twin: bench.py's ten lines at full size, graphed
+    k1_paths.update(run_bench(dev, smi))
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",

@@ -18,7 +18,10 @@ The multihop edge list (`featurize/multihop.py`) is one padded edge set
 with an `edge_distance` extra, so every hop's messages flow in one gather
 and one scatter: on the uniform per-graph layout (`batch.nodes_per_graph`)
 the scatter is the per-graph one-hot product of `_dense_local_scatter`,
-else a masked segment sum. Under `compute_dtype="bfloat16"` the history,
+else a masked segment sum. On that layout the virtual node's broadcast
+is a reshape and its add-pool, like the graph pooling, a masked reshape
+sum (`pool_nodes_to_graphs`, as OgbGNN pools): no atomic adds, so a step
+from one state gives one loss. Under `compute_dtype="bfloat16"` the history,
 the bond embedding, the messages and the aggregation run in bf16, the
 rest in f32, as JAX's promotions make it. Dropout draws from the model's
 generator `rng` (seeded with `rng_seed`) in `train()` only.
@@ -48,7 +51,12 @@ from escgnn_tpu_torch.models.ogb_gnn import (
     BOND_FEATURE_DIMS,
     FeatureSumEncoder,
 )
-from escgnn_tpu_torch.ops.segment import masked_ids, segment_mean, segment_sum
+from escgnn_tpu_torch.ops.segment import (
+    masked_ids,
+    pool_nodes_to_graphs,
+    segment_mean,
+    segment_sum,
+)
 
 
 class GINEPlusConv(nn.Module):
@@ -169,12 +177,16 @@ class GINEPlusNetwork(nn.Module):
         if cfg.virtual_node:
             vn = h.new_zeros(G, cfg.hidden) + self.v0
         node_graph = batch.node_graph.long()
+        n_u = batch.nodes_per_graph
+        uniform = n_u is not None and h.shape[0] == G * n_u
 
         xx = [h]
         for layer in range(cfg.num_layers):
             last = layer == cfg.num_layers - 1
             if cfg.virtual_node:
-                xx[0] = xx[0] + vn.index_select(0, node_graph)
+                xx[0] = xx[0] + (
+                    vn[:, None, :].expand(G, n_u, -1).reshape(h.shape[0], -1)
+                    if uniform else vn.index_select(0, node_graph))
             bond_emb = getattr(self, f"bond_encoder_{layer}")(batch.edge_attr)
             h = getattr(self, f"conv{layer}")(xx, batch, distance, bond_emb)
             h = getattr(self, f"norm{layer}")(h, nm)
@@ -182,7 +194,7 @@ class GINEPlusNetwork(nn.Module):
                 h = F.relu(h)
             h = self.drop(h)
             if cfg.virtual_node and not last:
-                v = vn + segment_sum(h, node_graph, G, nm)
+                v = vn + pool_nodes_to_graphs(h, batch, "sum")
                 v = getattr(self, f"vn_mlp0_{layer}")(v)
                 v = F.relu(getattr(self, f"vn_bn0_{layer}")(
                     v, batch.graph_mask))
@@ -203,5 +215,5 @@ class GINEPlusNetwork(nn.Module):
             g = segment_mean(h, masked_ids(batch.segment_graph, sm), G,
                              mask=sm)
         else:
-            g = segment_mean(h, node_graph, G, mask=nm)
+            g = pool_nodes_to_graphs(h, batch, "mean")
         return self.head(g)

@@ -78,6 +78,12 @@ class ClippedAdam(torch.optim.Adam):
         self.grad_clip = float(grad_clip)
         self.frozen = list(frozen)
 
+    # a copy (`copy.deepcopy`, pickle) keeps the clip and the frozen
+    # parameters: the base class copies only its own state
+    def __getstate__(self):
+        return dict(super().__getstate__(), grad_clip=self.grad_clip,
+                    frozen=self.frozen)
+
     @torch.no_grad()
     def step(self, closure=None):
         for p in self.frozen:

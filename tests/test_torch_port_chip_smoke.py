@@ -117,3 +117,62 @@ def test_hold_grads_holds_each_gradient_to_its_own_norm(case, ok):
     worst, n_zero, zero_max = chip_smoke._hold_grads(case, got, want,
                                                      rel=1e-2)
     assert worst <= 1e-2 and n_zero == 1 and zero_max < chip_smoke.NOISE_GRAD
+
+
+# the phases that step a bench batch, by the twin's metric: [gps_bench]
+# and [flat]'s GPS step, [gps_pep], the OGB and GINE+ bench steps and
+# [zoo_registry]'s k123 batch
+_PHASE_LINES = {"gps_bench": "zinc_gps_trainstep_edges_per_s_per_chip",
+                "gps_pep": "pepstruct_gps_trainstep_edges_per_s_per_chip",
+                "ogb_bench_step": "molhiv_ogbgnn_trainstep_edges_per_s_per_chip",
+                "ginep_bench_step":
+                    "molhiv_gineplus_trainstep_edges_per_s_per_chip",
+                "zoo_registry_k123":
+                    "qm9_k123gnn_trainstep_copyedges_per_s_per_chip"}
+
+
+@pytest.mark.parametrize("phase", list(_PHASE_LINES))
+def test_phase_batches_are_the_bench_twins(phase):
+    """`bench_line`, which those phases read, gives the twin's table line
+    (`escgnn_tpu_torch/bench.py`): its graphs' batch bit for bit, its
+    spec, model config, loss and widths (at BENCH_SMOKE's counts)."""
+    from escgnn_tpu_torch import bench
+
+    metric = _PHASE_LINES[phase]
+    got = chip_smoke.bench_line(metric, smoke=True)
+    want = bench.bench_line(metric, bench.make_graph_sets(
+        (metric,), smoke=True, num_workers=0), smoke=True)
+    assert got.spec == want.spec and got.config == want.config
+    assert got.loss_fn is want.loss_fn
+    assert got.model_kwargs == want.model_kwargs
+    assert got.real_edges == want.real_edges
+    gb, wb = got.host_batch().tensors(), want.host_batch().tensors()
+    assert set(gb) == set(wb)
+    for k, v in wb.items():
+        assert torch.equal(gb[k], v), k
+
+
+def test_zoo_k123_batch_is_the_bench_twins():
+    """`[zoo_registry]`'s k123 batch is the twin's k123 line at full
+    size."""
+    from escgnn_tpu_torch import bench
+
+    data = chip_smoke._zoo_data()
+    want = bench.bench_line(bench.K123, bench.make_graph_sets(
+        (bench.K123,), num_workers=0))
+    gb, wb = data["kset"].tensors(), want.host_batch().tensors()
+    assert set(gb) == set(wb)
+    for k, v in wb.items():
+        assert torch.equal(gb[k], v), k
+
+
+def test_bench_phase_names_every_line():
+    """`[bench]` prints one `[bench_<line>]` per metric, and K1's nodes
+    are expected only on the dedup lines."""
+    from escgnn_tpu_torch import bench
+
+    shorts = [chip_smoke._bench_short(m) for m in bench.METRICS]
+    assert len(set(shorts)) == len(bench.METRICS)
+    assert shorts[-1] == "flagship"
+    assert set(chip_smoke.BENCH_K1_NODES) == {"flagship", "ogb", "gps",
+                                              "gps_pep"}

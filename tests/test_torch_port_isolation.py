@@ -90,7 +90,7 @@ def test_slice_modules_are_walked():
                 "run_qm9", "run_sr", "run_exp", "run_csl", "data.compress",
                 "parallel", "parallel.mesh", "parallel.multihost",
                 "parallel.data_parallel", "parallel.edge_partition",
-                "parallel.halo"):
+                "parallel.halo", "bench"):
         assert f"escgnn_tpu_torch.{mod}" in names, mod
 
 
@@ -104,7 +104,8 @@ def test_importing_the_twins_runs_nothing(tmp_path):
         [sys.executable, "-c", "import escgnn_tpu_torch.run_zinc, "
          "escgnn_tpu_torch.run_graphcount, escgnn_tpu_torch.run_zinc_cycle, "
          "escgnn_tpu_torch.run_qm9, escgnn_tpu_torch.run_sr, "
-         "escgnn_tpu_torch.run_exp, escgnn_tpu_torch.run_csl",
+         "escgnn_tpu_torch.run_exp, escgnn_tpu_torch.run_csl, "
+         "escgnn_tpu_torch.bench",
          "--epochs", "x"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr

@@ -127,12 +127,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import dataclasses
 
-    from chip_smoke import (
-        NUM_GRAPHS,
-        counting_batch,
-        flagship_config,
-        ppgn_config,
-    )
+    from chip_smoke import NUM_GRAPHS, counting_batch, ppgn_config
+    from escgnn_tpu_torch.bench import flagship_config
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
     from escgnn_tpu_torch.data.molecules import synthetic_zinc
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
@@ -201,20 +197,15 @@ def main() -> int:
         model = run_ogb_mol.build_model(oargs, dev)
         loss_fn = bce_graph_loss
     elif args.model in ("gps", "gps_pep"):
-        from chip_smoke import (
-            bench_pep_graphs,
-            bench_zinc_graphs,
-            gps_bench_config,
-        )
+        from chip_smoke import bench_line
+        from escgnn_tpu_torch import bench
         from escgnn_tpu_torch.models import gps
 
-        zinc = args.model == "gps"
-        graphs = bench_zinc_graphs() if zinc else bench_pep_graphs()
-        spec = BatchSpec.uniform(graphs, len(graphs), enc_layout="dedup")
-        batch = pad_and_batch(graphs, spec, device=dev)
-        model = gps.GPSModel(gps_bench_config("zinc" if zinc else "pep"),
-                             device=dev, generator=gen)
-        loss_fn = l1_graph_loss
+        line = bench_line(bench.GPS_ZINC if args.model == "gps"
+                          else bench.GPS_PEP)
+        batch = line.host_batch().to(dev)
+        model = line.model(dev, generator=gen)
+        loss_fn = line.loss_fn
         spd_backward = _label_spd_backward(gps, args.spd_embed)
     elif args.model == "ppgn":
         batch, spec, _ = counting_batch(dev)
