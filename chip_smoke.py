@@ -99,6 +99,11 @@ against its plain PyTorch version on the card, then drives these paths:
     `[pool_zoo]` (TopKPool -> DiffPool -> graclus pooling, card against
     CPU) and `[ogb_flag]` (OgbGNN's FLAG perturbation: zeros equal none
     bit for bit, a random one gives a gradient);
+  * slice 15: `[cost]` (after `[k4]`: each kernel's charge to
+    `utils/cost.py`'s `CostMode` at its path's shapes, the kernel's on the
+    card equal to its plain version's on the CPU, the FLOPs equal to the
+    plain version's op-by-op count on the card, the bytes over 3.35 TB/s
+    printed as its bound beside its time);
   * slice 14: `[bench]`, the bench twin (`python -m
     escgnn_tpu_torch.bench`) at full size: bench.py's ten lines, each
     one batch timed as the graphed pool step, their JSON lines checked
@@ -106,7 +111,10 @@ against its plain PyTorch version on the card, then drives these paths:
     loss held to the eager step, K1's nodes per captured step and its
     launches. The phases above that step a bench batch (`[gps_bench]`,
     `[gps_pep]`, `[flat]`'s GPS step, the OGB and GINE+ bench steps and
-    `[zoo_registry]`'s k123) read the twin's line table.
+    `[zoo_registry]`'s k123) read the twin's line table. Slice 15: every
+    line's bytes fields, `hbm_bw_frac` and `roofline_frac` set,
+    `roofline_frac` at most 1.05, its FLOPs at least the matmul-only
+    count of the same step.
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -812,6 +820,90 @@ def check_k4(dev, G, N):
          bound_ms=bound_ms, bound_by=bound_by, ok=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _charged(fn, *args):
+    """The one charge `fn` (a kernel's wrapper) makes to a `CostMode`:
+    (name, flops, transcendentals, bytes)."""
+    from escgnn_tpu_torch.utils import cost
+
+    with cost.CostMode() as mode:
+        fn(*args)
+    torch.cuda.synchronize()
+    if len(mode.by_op) != 1:
+        raise AssertionError(f"cost: {fn.__name__} charged {sorted(mode.by_op)}"
+                             f", not one kernel")
+    (name, c), = mode.by_op.items()
+    if c.calls != 1:
+        raise AssertionError(f"cost: {name} charged {c.calls} times")
+    return name, c.flops, c.transcendentals, c.bytes
+
+
+def check_cost(batch, ppgn_batch, N: int, dev, timed: dict) -> dict:
+    """`[cost]`: each kernel's charge to `utils/cost.py`'s `CostMode` at its
+    path's shapes (K1 the flagship's (E, 288) strided f32 gradient, K2 its
+    unique rows, K3 the PPGN_eff width batch, K4 its bf16 grid of N nodes
+    per graph): the
+    kernel's call on the card and its plain version (the wrapper on CPU
+    copies of the same inputs) charge the same FLOPs and bytes, and the
+    FLOPs are what the plain version counts op by op on the card. Prints
+    the charge's bytes over 3.35 TB/s as the kernel's bound beside its
+    time from `[k1]`-`[k4]` (`timed`). Returns each kernel's bound in ms,
+    by short name."""
+    from escgnn_tpu_torch.ops import expand_cuda, ppgn_pool, zemb_cuda, zemb_gather
+    from escgnn_tpu_torch.utils import cost
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    perm, rows = batch.enc_edge_perm, batch.enc_row_sorted
+    R, H = batch.enc_idx.shape[0], 256
+    dZ = torch.randn(perm.shape[0], H + 32, device=dev, generator=gen)[:, :H]
+    idx = batch.enc_idx.to(torch.int32).contiguous()
+    cnt = batch.enc_cnt.to(torch.float32).contiguous()
+    table2 = torch.randn(batch.enc_bucket_ids.shape[0], H, device=dev,
+                         generator=gen)
+    idx3 = ppgn_batch.enc_idx.to(torch.int32).contiguous()
+    cnt3 = ppgn_batch.enc_cnt.to(torch.float32).contiguous()
+    table3 = torch.randn(1800, PPGN_EMB, device=dev, generator=gen)
+    x4 = torch.randn(NUM_GRAPHS, N, N, PPGN_EMB, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    cases = {
+        "k1": (expand_cuda.sorted_segment_sum,
+               expand_cuda.sorted_segment_sum_plain, (dZ, perm, rows, R)),
+        "k2": (zemb_cuda.zemb_countmat, zemb_cuda.zemb_countmat_plain,
+               (table2, idx, cnt)),
+        "k3": (zemb_gather.zemb_gather, zemb_gather.zemb_gather_plain,
+               (table3, idx3, cnt3)),
+        "k4": (ppgn_pool.diag_row_col_pool, ppgn_pool.diag_row_col_pool_plain,
+               (x4,)),
+    }
+    bounds = {}
+    for short, (wrapper, plain, args) in cases.items():
+        name, flops, trans, nbytes = _charged(wrapper, *args)
+        cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        plain_charge = _charged(wrapper, *cpu)
+        if plain_charge != (name, flops, trans, nbytes):
+            raise AssertionError(f"cost {short}: the kernel's charge "
+                                 f"{(name, flops, trans, nbytes)} != its "
+                                 f"plain version's {plain_charge}")
+        with cost.CostMode() as mode:
+            plain(*args)
+        torch.cuda.synchronize()
+        bare = mode.total()
+        if bare.flops != flops:
+            raise AssertionError(f"cost {short}: charged {flops} FLOPs, its "
+                                 f"plain version counts {bare.flops}")
+        # the charge's FLOPs are the plain version's (K2's dense product
+        # among them), not the kernel's: the bound is the bytes'
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bounds[short] = bound_ms
+        _log(f"cost_{short}", kernel=name, flops=flops,
+             transcendentals=trans, bytes=nbytes, bytes_bound_ms=bound_ms,
+             ms=timed[short], ms_over_bound=timed[short] / bound_ms,
+             plain_op_by_op_bytes=bare.bytes, plain_charge_equal=True,
+             ok=True)
+    _log("cost", kernels=len(cases), bound_ms=json.dumps(bounds), ok=True)
+    return bounds
 
 
 def ppgn_config(max_nodes: int, pool_impl: str, compute_dtype="bfloat16",
@@ -4122,6 +4214,10 @@ def run_bench(dev, smi) -> dict:
     `perf_fields` and `metric`, `unit`, `vs_baseline` (null) and
     `device` (this card's nvidia-smi line); `value` and `ms_per_step`
     finite and positive, `flops_per_step` positive, `mfu` in (0, 1];
+    slice 15: `bytes_per_step` positive, `hbm_bw_frac`, `roofline_frac`
+    and `binding_resource` set, `roofline_frac` at most 1.05, and
+    `flops_per_step` at least `FlopCounterMode`'s matmul count of the
+    same counted step (run around `count_cost`);
     every loss finite; the first graphed step's loss equal to the eager
     step from the same state (the one the FLOP count ran) at rel 1e-5;
     one graph captured per line, replayed once per step of its windows;
@@ -4134,10 +4230,23 @@ def run_bench(dev, smi) -> dict:
     from escgnn_tpu_torch import bench
     from escgnn_tpu_torch.ops import expand_cuda
 
+    from torch.utils.flop_counter import FlopCounterMode
+
     saved = {k: os.environ.pop(k, None)
              for k in ("BENCH_SMOKE", "BENCH_ONLY", "BENCH_PROFILE_DIR")}
     ledger = _GraphLedger()
     out = io.StringIO()
+    # the matmul-only count of each line's counted step, beside its cost
+    matmul_flops = []
+    count_cost = bench.count_cost
+
+    def count_with_matmuls(*args):
+        with FlopCounterMode(display=False) as counter:
+            res = count_cost(*args)
+        matmul_flops.append(counter.get_total_flops())
+        return res
+
+    bench.count_cost = count_with_matmuls
     expand_cuda.launches = 0
     t0 = time.perf_counter()
     try:
@@ -4145,6 +4254,7 @@ def run_bench(dev, smi) -> dict:
             results = bench.main(["--device", "cuda"])
         torch.cuda.synchronize()
     finally:
+        bench.count_cost = count_cost
         os.environ.update({k: v for k, v in saved.items() if v is not None})
     seconds = time.perf_counter() - t0
     eager_k1 = expand_cuda.launches
@@ -4176,6 +4286,20 @@ def run_bench(dev, smi) -> dict:
             raise AssertionError(f"bench {short}: {f}")
         if f["mfu"] is None or not 0 < f["mfu"] <= 1:
             raise AssertionError(f"bench {short}: mfu {f['mfu']}")
+        if not (f["bytes_per_step"] and f["bytes_per_step"] > 0
+                and f["bytes_per_step_scanbody"]
+                and f["hbm_bw_frac"] is not None
+                and f["roofline_frac"] is not None
+                and f["binding_resource"] is not None):
+            raise AssertionError(f"bench {short}: bytes fields {f}")
+        # a share above 1 no card can give: the count would be wrong
+        if f["roofline_frac"] > 1.05:
+            raise AssertionError(f"bench {short}: roofline_frac "
+                                 f"{f['roofline_frac']} > 1.05")
+        if f["flops_per_step"] < matmul_flops[i]:
+            raise AssertionError(f"bench {short}: {f['flops_per_step']} "
+                                 f"FLOPs under the matmul-only "
+                                 f"{matmul_flops[i]}")
         losses = [res.first_loss, res.eager_loss] + [
             v for w in res.window_losses for v in w]
         if not all(math.isfinite(v) for v in losses):
@@ -4200,7 +4324,10 @@ def run_bench(dev, smi) -> dict:
         _log(f"bench_{short}", **f, steps_per_window=len(res.window_losses[0]),
              replays=replays, graph_kernel_nodes=_dot_nodes(ledger.dots[i],
                                                             "{KERNEL"),
-             k1_nodes=nodes, k1_launches=k1, first_loss=res.first_loss,
+             k1_nodes=nodes, k1_launches=k1, matmul_flops=matmul_flops[i],
+             top_bytes=json.dumps(sorted(
+                 ((k, c.bytes) for k, c in res.cost.by_op.items()),
+                 key=lambda kv: -kv[1])[:6]), first_loss=res.first_loss,
              eager_loss=res.eager_loss, first_graphed_loss=first,
              first_graphed_rel=rel, last_loss=res.window_losses[-1][-1],
              ok=True)
@@ -4350,6 +4477,10 @@ def main() -> int:
     ppgn_batch, ppgn_spec, ppgn_edges = counting_batch(dev)
     k3 = check_k3(ppgn_batch, dev)
     k4 = check_k4(dev, NUM_GRAPHS, ppgn_spec.max_nodes_per_graph)
+    # slice 15: the kernels' cost charges, kernel against plain version
+    check_cost(batch, ppgn_batch, ppgn_spec.max_nodes_per_graph, dev,
+               {k: v["ms"] for k, v in zip(("k1", "k2", "k3", "k4"),
+                                           (k1, k2, k3, k4))})
     check_small_ppgn(dev)
     ppgn_launches = run_ppgn(ppgn_batch, ppgn_spec, ppgn_edges, dev)
 

@@ -22,20 +22,30 @@ and windows (a wiring check), `BENCH_ONLY=flagship` runs the flagship
 line alone, `BENCH_PROFILE_DIR=DIR` runs one more flagship window under
 `torch.profiler` after the timing and writes its trace into DIR.
 
-Where the twin differs from `bench.py`, for want of a counterpart:
-  * `flops_per_step` is `torch.utils.flop_counter.FlopCounterMode` over
-    one eager train step (forward and backward) on a copy of the line's
-    model and optimizer: it counts matmul-class aten ops (mm, addmm,
-    bmm, baddbmm, convolutions, attention) only. The K1 custom op,
-    elementwise work and the optimizer count 0, where XLA's
-    `cost_analysis` counts every HLO op of the compiled step;
-  * the bytes fields are null (XLA's HLO byte counts have no torch
-    counterpart, and a guess is not a count), so `hbm_bw_frac` is null and
-    `roofline_frac` is `mfu`, as `bench.py` gives when its bytes are
-    missing;
-  * `mfu` divides by the card's dense bf16 peak (`PEAK_BF16_FLOPS`, by
-    `torch.cuda.get_device_name()`), null on the CPU and on cards not in
-    the table;
+The costs are `bench.py`'s, counted by `utils/cost.py` (`count_cost`)
+over one eager train step (forward, backward and the optimizer update)
+on a copy of the line's model and optimizer:
+  * `flops_per_step` charges every aten op by the rule XLA's
+    `cost_analysis` applies to it (matmuls, elementwise work, reductions,
+    gathers and scatters, Adam), and each hand kernel (K1-K4) the FLOPs of
+    its plain version, whichever version runs; XLA gives a Pallas call 0;
+  * `bytes_per_step` charges each kernel's operands read once and its
+    outputs written once, `hbm.py`'s rule at fusion boundaries. An eager
+    step, and the CUDA graph captured from it, has no fusion: every
+    non-view op is its own kernel, so `bytes_per_step_opcount` (XLA's
+    per-op sum) equals `bytes_per_step`, and bytes that stay in the
+    card's L2 are charged as if they went to HBM;
+  * `bytes_per_step_scanbody`, which `hbm_bw_frac` reads, adds the copies
+    the graphed pool step makes before each replay (`pool_load_bytes`),
+    the part of a timed step outside the counted one;
+  * integer index converts, fills and the index arithmetic of gathers
+    count no FLOP, where XLA counts some (see `utils/cost.py`).
+
+Where the twin differs from `bench.py` otherwise:
+  * `mfu` divides by the card's dense bf16 peak (`PEAK_BF16_FLOPS`) and
+    `hbm_bw_frac` by its HBM rate (`PEAK_HBM_BYTES_PER_S`), by
+    `torch.cuda.get_device_name()`; both are null on the CPU and on cards
+    not in the tables;
   * `vs_baseline` (and the flagship's `vs_r01`) are null: `bench.py`'s
     denominators are measurements of another chip;
   * `device` is `nvidia-smi --query-gpu=name,power.limit
@@ -49,7 +59,6 @@ with `--device cpu`; without a card the default raises.
 from __future__ import annotations
 
 import argparse
-import copy
 import dataclasses
 import functools
 import json
@@ -78,6 +87,7 @@ from escgnn_tpu_torch.train.loop import (
     make_pool_train_step,
     train_step,
 )
+from escgnn_tpu_torch.utils.cost import StepCost, count_cost, pool_load_bytes
 
 # the metric names, in bench.py's order (the keys of its ROUND4_MEASURED)
 PPGN = "counting_ppgn_eff_trainstep_edges_per_s_per_chip"
@@ -580,19 +590,6 @@ def bench_lines(gsets: dict, smoke: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def count_flops(model, opt, batch: GraphBatch, loss_fn) -> tuple:
-    """(FLOPs, loss) of one eager train step (forward, backward and the
-    optimizer update) on a deep copy of `model` and `opt`, counted by
-    `FlopCounterMode`: matmul-class aten ops only, the K1 custom op and
-    elementwise work at 0. `model` and `opt` are left as they were."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    m, o = copy.deepcopy((model, opt))
-    with FlopCounterMode(display=False) as counter:
-        loss = train_step(m, o, batch, loss_fn)
-    return int(counter.get_total_flops()), float(loss)
-
-
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -622,8 +619,8 @@ def perf_fields(times, n_iter, real_edges, fps, peak, bps=None, bw=None,
                 bps_opcount=None, bps_scanbody=None):
     """edges/s, step time, MFU and the roofline fields of a line, as
     `bench.py`'s `perf_fields` computes and rounds them. `roofline_frac`
-    is the larger of MFU and the bandwidth share, which needs bytes:
-    without them it is MFU."""
+    is the larger of MFU and the bandwidth share (from `bps_scanbody`,
+    else `bps`); without bytes it is MFU."""
     mean_t = float(np.mean(times))
     std_t = float(np.std(times))
     ms = mean_t / n_iter * 1e3
@@ -664,13 +661,15 @@ def perf_fields(times, n_iter, real_edges, fps, peak, bps=None, bw=None,
 @dataclasses.dataclass
 class LineResult:
     """A line's printed fields and the losses behind them: the first
-    eager step's, the eager step the FLOP count ran (from the state the
-    pool step starts in) and each window's (the warm one first)."""
+    eager step's, the eager step the cost count ran (from the state the
+    pool step starts in) and each window's (the warm one first); and that
+    step's count (`utils/cost.py` `StepCost`)."""
 
     fields: dict
     first_loss: float
     eager_loss: float
     window_losses: list
+    cost: StepCost
 
 
 def run_line(line: BenchLine, device: torch.device, tag: str,
@@ -684,7 +683,7 @@ def run_line(line: BenchLine, device: torch.device, tag: str,
     opt = adam_with_plateau(model.parameters(), LR,
                             capturable=device.type == "cuda")
     first = float(train_step(model, opt, batch, line.loss_fn))
-    fps, eager = count_flops(model, opt, batch, line.loss_fn)
+    step_cost, eager = count_cost(model, opt, batch, line.loss_fn)
     times, losses, step = scan_time(model, opt, pool, line.loss_fn,
                                     line.n_iter, line.windows)
     if profile_dir:
@@ -697,14 +696,18 @@ def run_line(line: BenchLine, device: torch.device, tag: str,
         prof.export_chrome_trace(os.path.join(profile_dir,
                                               "bench_trace.json"))
     name = device_name(device)
+    # no fusion: each op is its own boundary, so the per-op sum is the
+    # boundary count; the pool step's copies before each replay come on top
     fields = dict(metric=line.metric, unit="edges/s", **perf_fields(
-        times, line.n_iter, line.real_edges, fps or None,
-        peak_bf16_flops(name), bw=peak_hbm_bytes_per_s(name)),
+        times, line.n_iter, line.real_edges, step_cost.flops or None,
+        peak_bf16_flops(name), bps=step_cost.bytes,
+        bw=peak_hbm_bytes_per_s(name), bps_opcount=step_cost.bytes,
+        bps_scanbody=step_cost.bytes + pool_load_bytes(pool)),
         vs_baseline=None)
     if line.metric == FLAGSHIP:
         fields["vs_r01"] = None
     fields["device"] = tag
-    return LineResult(fields, first, eager, losses)
+    return LineResult(fields, first, eager, losses, step_cost)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -12,7 +12,8 @@ the design and its bound). It reads dZ with any row stride, so the
 step's gradient, a column slice of a wider tensor, is not copied.
 
 `sorted_segment_sum` launches the kernel for CUDA tensors and takes the
-plain PyTorch version only for CPU tensors.
+plain PyTorch version only for CPU tensors. Either way it charges one call
+to an active `utils/cost.py` `CostMode` (`segsum_cost`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
+from escgnn_tpu_torch.utils import cost
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -118,11 +120,30 @@ def as_rows(dZ):
     return dZ.contiguous()
 
 
+def segsum_cost(dZ, perm, rows_sorted, num_rows: int) -> tuple:
+    """(FLOPs, transcendentals, bytes) of one call: the plain version's
+    FLOPs (one add per element of dZ, and its convert to f32 when dZ is
+    bf16) and the kernel's boundary: dZ's (E, H) elements (not its row
+    stride's), perm and rows_sorted read, the (num_rows, H) f32 output
+    written."""
+    E, H = dZ.shape
+    flops = E * H * (1 if dZ.dtype == torch.float32 else 2)
+    return flops, 0, cost.nbytes(dZ, perm, rows_sorted) + num_rows * H * 4
+
+
 def sorted_segment_sum(dZ, perm, rows_sorted, num_rows: int):
     """Sum rows of `dZ` (E, H) f32/bf16 taken in the order `perm` (E,)
     int32 by the non-decreasing row ids `rows_sorted` (E,) int32 ->
     (num_rows, H) f32. Rows no id names come out 0. On a CUDA device dZ
     may have any row stride >= H (column stride 1)."""
+    with cost.kernel_scope():
+        out = _sorted_segment_sum(dZ, perm, rows_sorted, num_rows)
+    cost.charge("sorted_segment_sum",
+                *segsum_cost(dZ, perm, rows_sorted, num_rows))
+    return out
+
+
+def _sorted_segment_sum(dZ, perm, rows_sorted, num_rows: int):
     if dZ.device.type == "cpu":
         return sorted_segment_sum_plain(dZ, perm, rows_sorted, num_rows)
     check_inputs(dZ, perm, rows_sorted)

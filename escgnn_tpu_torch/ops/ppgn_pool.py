@@ -13,7 +13,9 @@ plain broadcast dx[n, k] = g_off[n] + g_off[k] + (g_diag - 2 g_off)[n]
 on the diagonal, in x's dtype.
 
 `diag_row_col_pool` launches the kernel for CUDA tensors and takes the
-plain PyTorch version only for CPU tensors.
+plain PyTorch version only for CPU tensors. Either way its forward charges
+one call to an active `utils/cost.py` `CostMode` (`pool_cost`); the
+backward is counted op by op.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from escgnn_tpu_torch import _build
+from escgnn_tpu_torch.utils import cost
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -34,7 +37,28 @@ def diag_row_col_pool_plain(x):
     return torch.cat([diag, row + col - 2.0 * diag], dim=-1)
 
 
+def pool_cost(x) -> tuple:
+    """(FLOPs, transcendentals, bytes) of one forward: the plain version's
+    FLOPs (the row and column sums, N - 1 adds per output each; row + col
+    - 2 diag, 3 per output; from bf16, the converts of the sums' inputs
+    and of the diagonal) and the kernel's boundary: x read, the (G, N,
+    2C) f32 output written."""
+    G, N, _, C = x.shape
+    grid, out = G * N * N * C, G * N * C
+    flops = 2 * (grid - out) + 3 * out
+    if x.dtype != torch.float32:
+        flops += 2 * grid + out
+    return flops, 0, cost.nbytes(x) + 2 * out * 4
+
+
 def _pool_forward(x):
+    with cost.kernel_scope():
+        out = _pool_kernel(x)
+    cost.charge("diag_row_col_pool", *pool_cost(x))
+    return out
+
+
+def _pool_kernel(x):
     if x.device.type == "cpu":
         return diag_row_col_pool_plain(x)
     if x.device.type != "cuda":

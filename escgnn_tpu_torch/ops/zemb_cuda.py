@@ -10,7 +10,8 @@ see `csrc/zemb_rows.cuh` for the design and the source for its bound). C
 makes the table backward one matmul, dT = C^T @ dU.
 
 `zemb_countmat` launches the kernel for CUDA tensors and takes the plain
-PyTorch version only for CPU tensors.
+PyTorch version only for CPU tensors. Either way it charges one call to an
+active `utils/cost.py` `CostMode` (`countmat_cost`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
+from escgnn_tpu_torch.utils import cost
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -42,9 +44,29 @@ def zemb_countmat_plain(table, enc_idx, enc_cnt):
     return C @ table.to(torch.float32), C
 
 
+def countmat_cost(table, enc_idx, enc_cnt) -> tuple:
+    """(FLOPs, transcendentals, bytes) of one call: the plain version's
+    FLOPs (the count matrix's two range compares, their and, two selects
+    and the scatter-add, 6 per (row, entry); the (R, Zc) @ (Zc, H)
+    product) and the kernel's boundary: the table, ids and counts read, z
+    and C written."""
+    Z, H = table.shape
+    R, P = enc_idx.shape
+    flops = 6 * R * P + 2 * R * Z * H
+    return flops, 0, (cost.nbytes(table, enc_idx, enc_cnt)
+                      + R * H * 4 + R * Z * 4)
+
+
 def zemb_countmat(table, enc_idx, enc_cnt):
     """(Zc, H) f32 table, (R, P) int32 ids, (R, P) f32 counts ->
     (z (R, H) f32, C (R, Zc) f32)."""
+    with cost.kernel_scope():
+        out = _zemb_countmat(table, enc_idx, enc_cnt)
+    cost.charge("zemb_countmat", *countmat_cost(table, enc_idx, enc_cnt))
+    return out
+
+
+def _zemb_countmat(table, enc_idx, enc_cnt):
     if table.device.type == "cpu":
         return zemb_countmat_plain(table, enc_idx, enc_cnt)
     smem_plan.check_inputs("zemb_countmat", table, enc_idx, enc_cnt)

@@ -14,7 +14,8 @@ It is forward-only, like the TPU kernel: the table gradient is the
 count-matrix product in `ops/zemb.py`.
 
 `zemb_gather` launches the kernel for CUDA tensors and takes the plain
-PyTorch version only for CPU tensors.
+PyTorch version only for CPU tensors. Either way it charges one call to an
+active `utils/cost.py` `CostMode` (`gather_cost`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
+from escgnn_tpu_torch.utils import cost
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -39,9 +41,28 @@ def zemb_gather_plain(table, enc_idx, enc_cnt):
     return torch.einsum("eph,ep->eh", rows, cnt)
 
 
+def gather_cost(table, enc_idx, enc_cnt) -> tuple:
+    """(FLOPs, transcendentals, bytes) of one call: the plain version's
+    FLOPs (two range compares, their and and two selects, 5 per (edge,
+    entry); the weighted sum over P as a batched product, 2 per (edge,
+    entry, column)) and the kernel's boundary: the whole table, ids and
+    counts read, z written."""
+    Z, H = table.shape
+    E, P = enc_idx.shape
+    flops = 5 * E * P + 2 * E * P * H
+    return flops, 0, cost.nbytes(table, enc_idx, enc_cnt) + E * H * 4
+
+
 def zemb_gather(table, enc_idx, enc_cnt):
     """(Z, H) f32 table, (E, P) int32 ids, (E, P) f32 counts -> (E, H)
     f32."""
+    with cost.kernel_scope():
+        out = _zemb_gather(table, enc_idx, enc_cnt)
+    cost.charge("zemb_gather", *gather_cost(table, enc_idx, enc_cnt))
+    return out
+
+
+def _zemb_gather(table, enc_idx, enc_cnt):
     if table.device.type == "cpu":
         return zemb_gather_plain(table, enc_idx, enc_cnt)
     smem_plan.check_inputs("zemb_gather", table, enc_idx, enc_cnt)

@@ -5,8 +5,8 @@
     and extra), the GPS ZINC set (`attach_attn_bias` over the ZINC-shaped
     molecules) and NestedPPGN's (`orig_adj`) included;
   * `perf_fields` equal to `bench.py`'s on `tests/test_bench_fields.py`'s
-    three cases and on a line without bytes (the twin's: `roofline_frac`
-    is `mfu`);
+    three cases, on a line without bytes (`roofline_frac` is `mfu`) and
+    on the twin's lines (FLOPs, bytes and the replay's bytes);
   * the peak table: H100 SXM, H100 PCIe, an unknown card and the CPU;
   * each of the ten lines against the one `bench.py` builds (its
     `run_secondary` run with `bench_model` caught, and its flagship
@@ -15,8 +15,9 @@
     loss, `n_iter` and the real edges;
   * `python -m escgnn_tpu_torch.bench --device cpu` under BENCH_SMOKE=1
     BENCH_ONLY=flagship, in a fresh interpreter: one line, the flagship
-    metric, every field of `bench.py`'s plus `device` "cpu", `mfu` and
-    `vs_baseline` null.
+    metric, every field of `bench.py`'s plus `device` "cpu", `mfu`,
+    `hbm_bw_frac`, `roofline_frac` and `vs_baseline` null, the bytes
+    fields counted.
 
 `bench.py`'s featurizers fork 8 workers; here they run in the test
 process (JAX is loaded, and a fork after XLA starts its threads can
@@ -202,9 +203,14 @@ def test_graph_sets_follow_bench_counts():
     dict(times=[1.0], n_iter=10, real_edges=50, fps=9.0, peak=100.0,
          bps=2.0, bw=100.0),
     dict(times=[1.0, 1.2], n_iter=10, real_edges=50, fps=None, peak=None),
-    # the twin's lines: FLOPs and a peak, no bytes
+    # FLOPs and a peak, no bytes
     dict(times=[0.61, 0.6, 0.63], n_iter=100, real_edges=12288,
          fps=5.4e9, peak=989.4e12, bw=3.35e12),
+    # the twin's lines: FLOPs, the step's bytes (its opcount the same) and
+    # the replay's
+    dict(times=[0.61, 0.6, 0.63], n_iter=100, real_edges=12288,
+         fps=4.29e10, peak=989.4e12, bps=5.417e9, bw=3.35e12,
+         bps_opcount=5.417e9, bps_scanbody=5.422e9),
 ])
 def test_perf_fields_equal_bench(kw):
     assert T.perf_fields(**kw) == B.perf_fields(**kw)
@@ -324,9 +330,12 @@ def test_main_defaults_to_cuda_and_raises_without_it():
 def test_main_smoke_flagship_on_cpu(tmp_path):
     """`python -m escgnn_tpu_torch.bench --device cpu` under BENCH_SMOKE=1
     BENCH_ONLY=flagship prints one line: the flagship metric with every
-    field of bench.py's lines, `device` "cpu", no peak (mfu null), no TPU
-    denominator (vs_baseline, vs_r01 null), a positive FLOP count; with
-    BENCH_PROFILE_DIR it writes the profiler's trace there."""
+    field of bench.py's lines, `device` "cpu", no peak (mfu, hbm_bw_frac
+    and roofline_frac null), no TPU denominator (vs_baseline, vs_r01
+    null), a positive FLOP count and the bytes of the counted step (the
+    opcount equal to it: no fusion) and of the replay (the pool step's
+    copies on top); with BENCH_PROFILE_DIR it writes the profiler's trace
+    there."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(BENCH_SMOKE="1", BENCH_ONLY="flagship", OMP_NUM_THREADS="2",
                BENCH_PROFILE_DIR=str(tmp_path / "trace"))
@@ -345,19 +354,27 @@ def test_main_smoke_flagship_on_cpu(tmp_path):
     assert line["mfu"] is None and line["vs_baseline"] is None
     assert line["vs_r01"] is None and line["windows"] == 5
     assert line["flops_per_step"] > 0
+    assert line["bytes_per_step"] > 0
+    assert line["bytes_per_step_opcount"] == line["bytes_per_step"]
+    assert line["bytes_per_step_scanbody"] > line["bytes_per_step"]
+    assert line["bw_frac_source"] == "scanbody"
+    assert line["hbm_bw_frac"] is None and line["roofline_frac"] is None
+    assert line["binding_resource"] is None
     assert line["value"] > 0 and line["ms_per_step"] > 0
     with open(tmp_path / "trace" / "bench_trace.json") as f:
         assert json.load(f)["traceEvents"]
 
 
 def test_count_flops_leaves_the_line_as_it_was():
-    """The FLOP count runs one eager step on a copy of the model and the
+    """The cost count (`utils/cost.py` `count_cost`, which replaced
+    `count_flops`) runs one eager step on a copy of the model and the
     optimizer: the line's own model, Adam state and gradients are left as
     they were, and the copy's loss is the next step's (from the same
     state). A copy of the optimizer keeps its clip and frozen tensors."""
     import copy
 
     from escgnn_tpu_torch.train.loop import adam_with_plateau, train_step
+    from escgnn_tpu_torch.utils.cost import count_cost
 
     line = port_line(T.GPS_ZINC)
     batch = line.host_batch()
@@ -369,13 +386,20 @@ def test_count_flops_leaves_the_line_as_it_was():
     before = {k: v.clone() for k, v in m.state_dict().items()}
     moments = {id(p): {k: v.clone() for k, v in s.items()}
                for p, s in opt.state.items()}
-    flops, loss = T.count_flops(m, opt, batch, line.loss_fn)
-    assert flops > 0
+    grads = {k: p.grad.clone() for k, p in m.named_parameters()
+             if p.grad is not None}
+    step_cost, loss = count_cost(m, opt, batch, line.loss_fn)
+    assert step_cost.flops > 0 and step_cost.bytes > 0
+    assert step_cost.by_op["sorted_segment_sum"].calls == 4
     for k, v in m.state_dict().items():
         assert torch.equal(v, before[k]), k
     for p, s in opt.state.items():
         for k, v in s.items():
             assert torch.equal(v, moments[id(p)][k]), k
+    for k, p in m.named_parameters():
+        assert (p.grad is None) == (k not in grads), k
+        if p.grad is not None:
+            assert torch.equal(p.grad, grads[k]), k
     o2 = copy.deepcopy(opt)
     assert o2.grad_clip == 5.0 and len(o2.frozen) == 1
     assert o2.frozen[0] is not frozen and torch.equal(o2.frozen[0], frozen)

@@ -90,7 +90,7 @@ def test_slice_modules_are_walked():
                 "run_qm9", "run_sr", "run_exp", "run_csl", "data.compress",
                 "parallel", "parallel.mesh", "parallel.multihost",
                 "parallel.data_parallel", "parallel.edge_partition",
-                "parallel.halo", "bench"):
+                "parallel.halo", "bench", "utils.cost"):
         assert f"escgnn_tpu_torch.{mod}" in names, mod
 
 
