@@ -95,7 +95,8 @@ against its plain PyTorch version on the card, then drives these paths:
     the ZINC twin's f32 widths on the flagship batch, and the bench's
     GPS ZINC step, each under the flat and the dedup layout: one step
     held flat to dedup, then a graphed epoch of each, ms/step side by
-    side), `[flat_bf16_bwd]` (the bf16 table backward against f32),
+    side; K1 sums the flat layout's z and table gradient),
+    `[flat_bf16_bwd]` (the bf16 table backward against f32),
     `[pool_zoo]` (TopKPool -> DiffPool -> graclus pooling, card against
     CPU) and `[ogb_flag]` (OgbGNN's FLAG perturbation: zeros equal none
     bit for bit, a random one gives a gradient);
@@ -3757,9 +3758,9 @@ def _flat_pair(label, make_model, graphs, lr, dev, smi):
     is printed beside it as the control), then one graphed pool epoch of
     each over `FLAT_REPS` copies of the batch
     (`check_pool_graph`, its graphed and eager losses held as there; K1
-    once per layer per step on the dedup epoch, none on the flat one).
-    Returns (the flat step's gradients, the flat batch, K1's launches in
-    the dedup epoch)."""
+    once per layer per step on the dedup epoch, twice on the flat one: its
+    z reduce and its table gradient). Returns (the flat step's gradients,
+    the flat batch, K1's launches in each layout's epoch)."""
     import numpy as np
 
     from escgnn_tpu_torch.data.batching import BatchSpec, pad_and_batch
@@ -3788,18 +3789,15 @@ def _flat_pair(label, make_model, graphs, lr, dev, smi):
                              f"(width: {table_rel('width')})")
     K = specs["flat"].num_enc_nnz
     entries = sum(int(np.diff(g.enc_offsets).sum()) for g in graphs)
-    reports, k1 = {}, 0
-    layers = model.cfg.num_layers
+    reports, k1 = {}, {}
+    layers = model.cfg.num_layers if label == "gps" else 1
     for lay in ("flat", "dedup"):
         model.load_state_dict(init)
         reports[lay] = {}
-        n = check_pool_graph(
+        k1[lay] = check_pool_graph(
             f"{label}_{lay}", model, l1_graph_loss, graphs * FLAT_REPS,
-            specs[lay], lr, dev, report=reports[lay], per_step=layers
-            if label == "gps" else 1,
-            kernel=None if lay == "flat" else ("k1", "segsum_kernel"))
-        if lay == "dedup":
-            k1 = n
+            specs[lay], lr, dev, report=reports[lay],
+            per_step=layers * (2 if lay == "flat" else 1))
     r_f, r_d = reports["flat"], reports["dedup"]
     _log("flat", model=label, graphs=len(graphs), E=specs["flat"].num_edges,
          K_budget=K, K_entries=entries, R=specs["dedup"].num_enc_rows,
@@ -3819,7 +3817,9 @@ def _flat_pair(label, make_model, graphs, lr, dev, smi):
          / r_d["graphed_ms_per_step"],
          flat_peak_mem_gb=r_f["graphed_peak_mem_gb"],
          dedup_peak_mem_gb=r_d["graphed_peak_mem_gb"],
-         k1_dedup_graphed_launches=k1, card=json.dumps(smi), ok=True)
+         k1_flat_graphed_launches=k1["flat"],
+         k1_dedup_graphed_launches=k1["dedup"], card=json.dumps(smi),
+         ok=True)
     return step["flat"][1], batches["flat"], k1
 
 
@@ -3831,18 +3831,21 @@ def run_flat(graphs, dev, smi) -> dict:
     `set_backward_matmul_dtype(torch.bfloat16)`, its table gradient held
     to the f32 one within 1e-2 of its norm (bf16 keeps 8 bits of each
     gradient entry) and not equal to it; f32 set back. Returns K1's
-    launches in the two dedup epochs."""
+    launches in the four graphed epochs."""
     from escgnn_tpu_torch import bench, run_zinc
     from escgnn_tpu_torch.ops import zemb
     from escgnn_tpu_torch.train.loop import l1_graph_loss
 
     args = run_zinc.build_parser().parse_args([])
-    k1 = {}
-    flat_grads, flat_batch, k1["flat_flagship_dedup"] = _flat_pair(
+    flat_grads, flat_batch, k1_flagship = _flat_pair(
         "flagship", lambda: _zinc_model(dev), graphs, args.lr, dev, smi)
     gps = bench_line(bench.GPS_ZINC)
-    _, _, k1["flat_gps_dedup"] = _flat_pair(
+    _, _, k1_gps = _flat_pair(
         "gps", lambda: gps.model(dev), gps.graphs, LR, dev, smi)
+    k1 = {f"flat_{model}_{lay}": n
+          for model, per_layout in (("flagship", k1_flagship),
+                                    ("gps", k1_gps))
+          for lay, n in per_layout.items()}
 
     zemb.set_backward_matmul_dtype(torch.bfloat16)
     try:

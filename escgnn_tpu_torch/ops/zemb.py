@@ -10,11 +10,16 @@ bucket compaction the (Zc, H) active table is gathered first; with the
 host count matrix `enc_countmat` the reduce is one matmul C @ table.
 On the width layout the reduce runs over the E edge rows directly. On
 the flat layout (`zemb_weighted_flat`) the K COO entries are gathered,
-weighted and summed into their edges with one `index_add_`; its backward
-is one more (dTable by bucket id) and a gathered dot per entry (dCnt),
-where JAX scans 128-entry blocks of one-hot matmuls, a TPU workaround
-for scatters. JAX computes the flat path in plain XLA, so it has no hand
-kernel here either.
+weighted and summed into their edges; its backward sums them once more
+into the table by bucket id (dTable) and takes a gathered dot per entry
+(dCnt), where JAX scans 128-entry blocks of one-hot matmuls, a TPU
+workaround for scatters. Both sums sort the entries by their target row
+on the device and add the runs with the sorted segment sum (K1), which
+adds every row's terms in a fixed order, so the flat path gives the same
+sums on every run: `index_add_` adds with atomics in no fixed order, and
+on dTable, where hundreds of entries share a bucket and largely cancel,
+Adam carried that noise into graphed and eager losses 1% apart within
+four steps on an H100.
 
 Without a host count matrix, `zemb_weighted_gather` reduces by impl:
   * "countmat" (the default): C built in PyTorch, then C @ table;
@@ -122,6 +127,14 @@ def zemb_weighted_gather(table, enc_idx, enc_cnt):
                              _IMPL == "pallas")
 
 
+def _sum_by(values, ids, num_rows: int):
+    """sum_k values[k] (K, H) f32 into row ids[k] -> (num_rows, H) f32, in
+    a fixed order: the ids stable-sorted, then K1 over their runs."""
+    ids_sorted, perm = torch.sort(ids, stable=True)
+    return expand_cuda.sorted_segment_sum(
+        values, perm.to(torch.int32), ids_sorted.to(torch.int32), num_rows)
+
+
 class _ZembFlat(torch.autograd.Function):
     """Counterpart of `_zemb_flat_core`: z[e] = sum_{k: edge_k = e}
     cnt_k * table[idx_k]; dTable[z] = sum_{k: idx_k = z} cnt_k *
@@ -131,16 +144,14 @@ class _ZembFlat(torch.autograd.Function):
     def forward(ctx, table, idx, cnt, edge, num_edges: int):
         ctx.save_for_backward(table, idx, cnt, edge)
         rows = table.index_select(0, idx).to(torch.float32) * cnt[:, None]
-        return rows.new_zeros(num_edges, table.shape[1]).index_add_(
-            0, edge, rows)
+        return _sum_by(rows, edge, num_edges)
 
     @staticmethod
     def backward(ctx, dZ):
         table, idx, cnt, edge = ctx.saved_tensors
         dZ_k = dZ.to(torch.float32).index_select(0, edge)
-        dT = torch.zeros(table.shape, dtype=torch.float32,
-                         device=table.device).index_add_(
-            0, idx, _bwd_operand(cnt)[:, None] * _bwd_operand(dZ_k))
+        dT = _sum_by(_bwd_operand(cnt)[:, None] * _bwd_operand(dZ_k), idx,
+                     table.shape[0])
         dCnt = (table.index_select(0, idx).to(torch.float32) * dZ_k).sum(-1)
         return dT.to(table.dtype), None, dCnt, None, None
 

@@ -24,7 +24,8 @@ by the rules XLA's `HloCostAnalysis` applies to the same op
     `sigmoid`, `native_layer_norm`, `native_batch_norm` and their
     backwards): what XLA counts for the JAX decomposition named beside
     each rule;
-  * gathers count no FLOP, scatters one per source element;
+  * gathers count no FLOP, scatters one per source element; a sort
+    n ceil(log2 n) for its n keys;
   * views, allocations and host reads (`view`, `expand`, `permute`,
     `slice`, `detach`, `empty`, `.item()`, ...) count nothing, the
     counterpart of `hbm.py`'s `_FREE_OPCODES`: the op that reads a view
@@ -643,6 +644,14 @@ def _index_put(args, kwargs, out):
 def _embedding_backward(args, kwargs, out):
     g, idx = args[0], args[1]
     return g.numel(), 0, nbytes(idx) + nbytes(g) + 2 * nbytes(out)
+
+
+@_rule("sort")
+def _sort(args, kwargs, out):
+    # XLA's comparison sort: n ceil(log2 n) FLOPs for the n elements of
+    # the keys, whichever axis; the keys read, values and indices written
+    n = args[0].numel()
+    return n * max(n - 1, 0).bit_length(), 0, _io(args[:1], {}, out)
 
 
 # ---------------------------------------------------------------------------

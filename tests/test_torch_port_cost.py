@@ -330,6 +330,13 @@ OPS = [
      lambda s, i: aten.embedding_dense_backward(s, i, 64, -1, False),
      lambda s, i: jax.ops.segment_sum(s, i, 64), "src idx",
      800 + 12800 + 2 * 8192),
+    # sorts: the keys read, the values and int64 indices written (XLA's
+    # CPU sort 16384, writing no indices; its argsort of the 100 int32
+    # ids, sorting them beside an iota, 2000)
+    ("sort", lambda a: torch.sort(a, 0), lambda a: jnp.sort(a, 0), "a",
+     8192 + 8192 + 16384),
+    ("argsort_stable", lambda i: torch.sort(i, stable=True),
+     lambda i: jnp.argsort(i, stable=True), "idx", 3 * 800),
     # views are free; a copy reads and writes (XLA's transpose: 16384)
     ("views", lambda a: (a.t(), a.view(32, 64), a.permute(1, 0),
                          a[:, :16], a.expand(2, 64, 32), a.unsqueeze(0),

@@ -7,8 +7,10 @@ JAX package, on the CPU.
     per-edge histograms;
   * `zemb_weighted_flat`: forward, dTable and dCnt against JAX's at rtol
     1e-5 (JAX's table backward set to f32 through its own
-    `set_backward_matmul_dtype`); the bf16 option against JAX's bf16 at
-    rtol 1e-2 of the gradient's norm;
+    `set_backward_matmul_dtype`), with the entries in the batcher's order
+    and shuffled (each sum sorts its ids and runs through K1's wrapper);
+    the bf16 option against JAX's bf16 at rtol 1e-2 of the gradient's
+    norm;
   * NestedGINEff, GPS and PPGN on flat batches with weights drawn by
     numpy and carried across: the eval output at 1e-5 of its largest
     entry, the train-mode loss at rtol 1e-5, each gradient at 1e-4 of its
@@ -212,6 +214,33 @@ def test_zemb_flat_equals_jax(f32_jax_backward):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
     with pytest.raises(ValueError, match="bfloat16"):
         zemb.set_backward_matmul_dtype(torch.float16)
+
+
+def test_zemb_flat_sums_through_k1_in_any_entry_order(f32_jax_backward):
+    """The forward's sum into edges and dTable's sum into buckets each sort
+    their ids and go through K1's wrapper once; with the entries shuffled
+    (an ep rank's rebased copy is not sorted by edge) forward, dTable and
+    dCnt still equal JAX's on the sorted entries at rtol 1e-5."""
+    from escgnn_tpu_torch.utils import cost
+
+    table, idx, cnt, edge, w = _flat_inputs(seed=2)
+    shuffle = np.random.default_rng(3).permutation(len(idx))
+    s_idx, s_cnt, s_edge = idx[shuffle], cnt[shuffle], edge[shuffle]
+    t = torch.tensor(table, requires_grad=True)
+    with cost.CostMode() as mode:
+        (zemb.zemb_weighted_flat(
+            t, torch.from_numpy(s_idx), torch.from_numpy(s_cnt),
+            torch.from_numpy(s_edge), w.shape[0]) * torch.from_numpy(w)
+         ).sum().backward()
+    assert mode.by_op["sorted_segment_sum"].calls == 2
+    assert mode.by_op["aten.sort"].calls == 2
+    z, dt, dc = _torch_flat(table, s_idx, s_cnt, s_edge, w)
+    dc_sorted = np.empty_like(dc)
+    dc_sorted[shuffle] = dc
+    want = _jax_flat(table, idx, cnt, edge, w)
+    for got, ref in zip((z, dt, dc_sorted), want):
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
 def test_zemb_flat_bf16_backward_equals_jax_bf16():
