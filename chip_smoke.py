@@ -63,7 +63,7 @@ against its plain PyTorch version on the card, then drives these paths:
     and `[run_zinc_cycle_gnn]` (the RGCN baseline, 3 epochs each, with
     their `[pool_graph]`); `[zoo_registry]` (every name this slice
     registers, built by `get_model`, 3 steps each) and `[small_zoo]`
-    (card against CPU). No port kernel lies on these paths;
+    (card against CPU). K1 takes their sums (slice 16);
   * GPS: `[run_gps]` (`run_gps.main` on configs/gps/zinc-GPS.yaml at its
     widths, 64 x 4, 4 heads, batch 32, 3 graphed epochs on 512 graphs;
     its `[pool_graph]`; `--eval_only` on the best checkpoint and
@@ -84,7 +84,7 @@ against its plain PyTorch version on the card, then drives these paths:
     set cut to 20 epochs, then `--model IDGNN` and `--nested` with 3
     folds; a fold's graphed and eager ms/step) and `[run_tu_cycles]` (the
     `class`, `reg --multi_layer` and `reg_gc` cycle trainers, and `class`
-    on the synthetic Cora). No port kernel lies on these paths;
+    on the synthetic Cora). K1 takes their sums (slice 16);
   * slice 13: `[packed]` (the ZINC twin's 800 training molecules
     packed by `packed_batch_iterator`, dedup and flat, against
     `batch_iterator`'s count; one graphed epoch over the packed dedup
@@ -115,7 +115,17 @@ against its plain PyTorch version on the card, then drives these paths:
     `[zoo_registry]`'s k123) read the twin's line table. Slice 15: every
     line's bytes fields, `hbm_bw_frac` and `roofline_frac` set,
     `roofline_frac` at most 1.05, its FLOPs at least the matmul-only
-    count of the same step.
+    count of the same step;
+  * slice 16: every float segment sum and every row gather's backward
+    runs K1 over a sorted view of its ids (`ops/segment.py`), so each
+    `[pool_graph]` holds K1's launches per graphed step to its eager
+    count (the packed pool's losses at 1e-5 in every step), the bench
+    lines' K1 nodes to their counted eager step, `[compress_pools]` the
+    ZINC twin's reruns bit for bit; then `[determinism]` (the steps of
+    `tools/determinism_probe.py`: two eager steps from one state and two
+    graphed epochs from one state bit-equal on the ZINC twin's, packed,
+    flat, `run_tu`'s and seven bench lines' steps; K1 against its f64
+    sum at the largest sums they make).
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -456,10 +466,14 @@ def check_k1(batch, dev):
     E, R, H = perm.shape[0], batch.enc_idx.shape[0], 256
     wide = torch.randn(E, H + 32, device=dev, generator=gen)
     dZ, dZc = wide[:, :H], wide[:, :H].contiguous()
-    per_call = _device_kernels(
-        lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R))
-    if per_call != 1:
-        raise AssertionError(f"K1 launched {per_call} kernels in one call")
+    # one call captured into a graph: its kernel nodes, exact where the
+    # profiler drops device records
+    per_call, k1_nodes = _captured_kernels(
+        lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows_sorted, R),
+        K1_SYMBOL)
+    if per_call != 1 or k1_nodes != 1:
+        raise AssertionError(f"K1 launched {per_call} kernels in one call, "
+                             f"{k1_nodes} of them K1")
     ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm,
                                                          rows_sorted, R))
     ms_contiguous = _cuda_ms(
@@ -1115,24 +1129,25 @@ def run_zinc_twin(work: str, smi: str):
 
 def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
                      kernel=("k1", "segsum_kernel"), rel_tol=(1e-5, 1e-3),
-                     batch_transform=None, report=None, per_step: int = 1,
-                     pool=None):
+                     batch_transform=None, report=None, per_step=None,
+                     pool=None, k1_min: int = 1):
     """`[pool_graph]`: from one state snapshot of `model`, one epoch of a
     twin's train pool (its graphs, spec and model at full width) through
     the graphed pool step and one through eager steps. The first step's
     loss agrees at rel_tol[0] (1e-5) and every later one at rel_tol[1]
-    (1e-3): the path is f32, but pooling and the embedding backward add
-    with atomics in no fixed order, and Adam amplifies that noise.
-    `rel_tol=None` (a model with dropout: the two epochs draw other
-    masks) compares nothing and checks that both losses are finite. The
-    kernel (label, symbol), K1 unless said, runs `per_step` times per
-    step of a graphed epoch (None: no kernel on the path): `per_step`
-    nodes of the captured graph, replayed once per step (`_GraphLedger`),
-    seen by the profiler at least once and never more often. Prints
-    both ms/step, the device's busy time per step, the launches per eager
-    step, the seconds the pool took to build and the peak device memory
-    of the graphed epoch; returns the kernel's launches in the graphed
-    epoch.
+    (1e-3 unless said: captured and eager kernels may round apart, and
+    Adam amplifies that). `rel_tol=None` (a model with dropout: the two
+    epochs draw other masks) compares nothing and checks that both
+    losses are finite. The kernel (label, symbol), K1 unless said, runs
+    `per_step` times per step of a graphed epoch: `per_step` nodes of the
+    captured graph, replayed once per step (`_GraphLedger`), seen by the
+    profiler at least once and never more often. For K1 `per_step`
+    defaults to the launches its wrapper counts in the eager epoch, the
+    same in every step and at least `k1_min` (every sum of a step and
+    every row gather's backward run K1). Prints both ms/step, the
+    device's busy time per step, the launches per eager step, the seconds
+    the pool took to build and the peak device memory of the graphed
+    epoch; returns the kernel's launches in the graphed epoch.
     `batch_transform` applies to every pooled batch (the bucketed copy
     layout); `report`, a dict, receives the printed numbers; `pool`, a
     stacked pool on the card, is taken instead of one built from `train`
@@ -1181,11 +1196,21 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     g_losses, g_ms = timed(lambda: graphed(pool, order).tolist())
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
+    from escgnn_tpu_torch.ops import expand_cuda
+
     model.load_state_dict(init)
     opt_e = adam_with_plateau(model.parameters(), lr, capturable=True)
+    expand_cuda.launches = 0
     e_losses, e_ms = timed(lambda: torch.stack([
         train_step(model, opt_e, pool_entry(pool, int(j)), loss_fn)
         for j in order]).tolist())
+    k1_eager = expand_cuda.launches
+    if kernel is not None and kernel[0] == "k1" and per_step is None:
+        per_step = k1_eager // steps
+        if k1_eager != per_step * steps or per_step < k1_min:
+            raise AssertionError(
+                f"{twin}: K1 ran {k1_eager} times in an eager epoch of "
+                f"{steps} steps, not one count of at least {k1_min} per step")
     rel = [abs(g - e) / abs(e) for g, e in zip(g_losses, e_losses)]
     if rel_tol is None:
         if not all(math.isfinite(v) for v in g_losses + e_losses):
@@ -1205,7 +1230,7 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     if kernel is not None:
         label, symbol = kernel
         n, seen = ledger.launches(symbol), _kernel_events(prof, symbol)
-        if n != steps * per_step or not 1 <= seen <= n:
+        if n != steps * per_step or not min(1, n) <= seen <= n:
             raise AssertionError(
                 f"{twin}: {label} ran {n} times in a graphed epoch of "
                 f"{steps} steps, not {per_step} per step "
@@ -1213,7 +1238,10 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
                 f"graph, {sum(ledger.replays)} replays; the profiler saw "
                 f"{seen})")
         per_epoch = {f"{label}_per_graphed_epoch": n,
-                     f"{label}_profiler_seen": seen}
+                     f"{label}_profiler_seen": seen,
+                     f"{label}_per_step": per_step}
+        if label == "k1":
+            POOL_GRAPH_K1[twin] = n
     graphed_events = _kernel_events(prof)
     graphed_busy = _busy_ms(prof) / steps
     launch_host = _host_ms(prof, "cudaGraphLaunch") / steps
@@ -1385,8 +1413,8 @@ def _regression_twin(name, twin, work, smi, graphs, steps, loss_fn,
     `flags`) on `graphs` molecules for 3 graphed epochs (loss
     falls, finite MAE, the expected steps per epoch), then `[pool_graph]`
     on its train split (built again by the twin's own `build_splits`) and
-    a fresh model: `kernel`, K1 unless said, once per graphed step,
-    counted by the profiler (None: no port kernel on the path). Returns
+    a fresh model: `kernel`, K1 unless said, as often per graphed step
+    as per eager step (`check_pool_graph`). Returns
     (the run's result, its flags, the kernel's launches in one graphed
     epoch)."""
     argv = ["--num_graphs", str(graphs), "--epochs", "3",
@@ -1620,7 +1648,7 @@ def time_ogb_bench_step(dev):
     fields = _bench_step(lambda: line.model(dev), pool, line.loss_fn,
                          kernel="segsum_kernel")
     fields["k1_per_graphed_step"] = fields.pop("kernel_per_graphed_step")
-    if fields["k1_per_graphed_step"] != 1:
+    if fields["k1_per_graphed_step"] != BENCH_K1_NODES["ogb"]:
         raise AssertionError(f"ogb bench step: K1 "
                              f"{fields['k1_per_graphed_step']} times per "
                              f"step")
@@ -1758,8 +1786,8 @@ def run_copy_zinc_twin(work: str, smi: str, model: str, dev):
     mean-center-side pair pooling) on 1000 synthetic molecules for 3
     epochs: 800 train graphs, 7 graphed steps per epoch. Then
     `[pool_graph]` on its train split (read from the run's cache and laid
-    out again) with a fresh model: graphed against eager, no port kernel
-    on this path. Prints the real and padded copy edges per step. Returns
+    out again) with a fresh model: graphed against eager, K1 in its
+    pooling sums and gathers' backwards. Prints the real and padded copy edges per step. Returns
     what `check_copy_bucketed` needs: the result, the pre-uniform splits,
     the uniform splits and the spec."""
     import numpy as np
@@ -1793,8 +1821,7 @@ def run_copy_zinc_twin(work: str, smi: str, model: str, dev):
         raise AssertionError(f"{name}: spec {spec} != {uspec}")
     pool = {}
     check_pool_graph(name, run_zinc.build_model(args, dev), l1_graph_loss,
-                     uniform["train"], spec, args.lr, dev, kernel=None,
-                     report=pool)
+                     uniform["train"], spec, args.lr, dev, report=pool)
     real_edges = sum(g.num_edges for g in splits["train"]) / steps
     _log(name, seconds=round(seconds, 3), graphs=1000, steps_per_epoch=steps,
          hidden=args.hidden, layers=args.layers, batch=args.batch_size,
@@ -1871,7 +1898,7 @@ def check_copy_bucketed(main_path, smi, dev):
     pool = {}
     check_pool_graph("run_zinc_i2gnn_bucketed", run_zinc.build_model(args, dev),
                      l1_graph_loss, uniform["train"], spec, args.lr, dev,
-                     kernel=None, batch_transform=transform, report=pool)
+                     batch_transform=transform, report=pool)
     real = int(host.edge_mask.sum())
     _log("copy_bucketed", regions=json.dumps(bucketed.seg_regions),
          transform_budgets=json.dumps(regions), layout_seconds=layout_s,
@@ -1955,7 +1982,7 @@ def run_nppgn_twin(work: str, smi: str, dev):
     check_pool_graph("run_ogb_mol_nppgn",
                      run_ogb_mol.build_model(args_run, dev, graphs),
                      bce_graph_loss, splits["train"], res["spec"], args.lr,
-                     dev, kernel=None, report=pool)
+                     dev, report=pool, k1_min=0)
     _log("run_ogb_mol_nppgn", seconds=round(seconds, 3), graphs=320,
          emb=args.emb_dim, blocks_per_level=args.num_layer, h=args.h,
          batch=batch, batch_cut=batch != args.batch_size,
@@ -2064,7 +2091,7 @@ def run_qm9_kgnn_twins(work: str, smi: str, dev):
     defaults (h 3 node copies with resistance distances, all 2-sets and
     connected 3-sets with Malkin neighbourhoods, batch 64, lr 1e-3, MSE)
     on 1000 synthetic molecules for 3 graphed epochs: 800 train graphs,
-    13 steps per epoch; its `[pool_graph]` (no port kernel on the path);
+    13 steps per epoch; its `[pool_graph]` (K1 in the set-graph sums);
     the set-up seconds (featurize with the k-set enumeration apart, then
     one stacked pool) and the spec's k-set budgets. Then one graphed
     epoch each of k1_GNN, k12_GNN and k13_GNN."""
@@ -2077,7 +2104,7 @@ def run_qm9_kgnn_twins(work: str, smi: str, dev):
 
     res, args, _ = _regression_twin(
         "run_qm9_k123", run_qm9, work, smi, 1000, 13, run_qm9.mse_loss,
-        build, flags=["--model", "k123_GNN"], kernel=None)
+        build, flags=["--model", "k123_GNN"])
     spec = res["spec"]
     budgets = {f: getattr(spec, f) for f in (
         "num_nodes", "num_edges", "num_segments", "num_kset2",
@@ -2149,14 +2176,13 @@ def run_ogb_gineplus_twin(work: str, smi: str, dev):
     train = run_ogb_mol.build_splits(args)[0]["train"]
     report = {}
     check_pool_graph("run_ogb_mol_ginep", run_ogb_mol.build_model(args, dev),
-                     bce_graph_loss, train, spec, args.lr, dev, kernel=None,
+                     bce_graph_loss, train, spec, args.lr, dev,
                      rel_tol=None, report=report)
     args0 = run_ogb_mol.build_parser().parse_args(argv + ["--drop_ratio",
                                                           "0"])
     check_pool_graph("run_ogb_mol_ginep_dropout0",
                      run_ogb_mol.build_model(args0, dev), bce_graph_loss,
-                     train, spec, args.lr, dev, kernel=None,
-                     rel_tol=(1e-5, math.inf))
+                     train, spec, args.lr, dev, rel_tol=(1e-5, math.inf))
     spread = _perturbed_spread(lambda: run_ogb_mol.build_model(args0, dev),
                                bce_graph_loss, train, spec, args.lr, dev)
 
@@ -2218,7 +2244,7 @@ def run_zinc_gnn_twins(work: str, smi: str, dev):
     synthetic molecules for 3 graphed epochs: 800 train graphs, 7 steps
     per epoch; its `[pool_graph]`. Then `run_zinc_cycle --model GNN`
     (node-level RGCN on the raw graphs) for 3 epochs with its
-    `[pool_graph]`. No port kernel lies on these paths."""
+    `[pool_graph]`, K1 in their sums."""
     import numpy as np
 
     from escgnn_tpu_torch import run_zinc, run_zinc_cycle
@@ -2242,8 +2268,7 @@ def run_zinc_gnn_twins(work: str, smi: str, dev):
         g.y = ((g.y - res["mean"]) / res["std"]).astype(np.float32)
     report = {}
     check_pool_graph("run_zinc_gnn", run_zinc.build_model(args, dev),
-                     l1_graph_loss, train, spec, args.lr, dev, kernel=None,
-                     report=report)
+                     l1_graph_loss, train, spec, args.lr, dev, report=report)
     _log("run_zinc_gnn", seconds=round(seconds, 3), graphs=1000,
          steps_per_epoch=7, layers=args.layers, batch=args.batch_size,
          N=spec.num_nodes, E=spec.num_edges, **_epoch_fields(res),
@@ -2251,7 +2276,7 @@ def run_zinc_gnn_twins(work: str, smi: str, dev):
     _regression_twin(
         "run_zinc_cycle_gnn", run_zinc_cycle, work, smi, 1000, 7,
         l1_node_loss, lambda a, splits: run_zinc_cycle.build_model(a, dev),
-        flags=["--model", "GNN"], kernel=None)
+        flags=["--model", "GNN"])
 
 
 def _zoo_data():
@@ -2571,20 +2596,23 @@ def run_gps_bench(shape: str, dev, reps: int):
     batch = line.host_batch().to(dev)
     k1 = check_k1_gps(batch, cfg.dim_h, dev, label)
     model = line.model(dev)
-    # eager launches of K1: one per layer per step
+    # eager launches of K1 per step: the bench line's count (per layer the
+    # z expansion's backward and the attention grid's gather, and the
+    # embedding lookups)
     expand_cuda.launches = 0
     train_step(copy.deepcopy(model),
                adam_with_plateau(model.parameters(), LR), batch,
                l1_graph_loss)
     torch.cuda.synchronize()
     eager = expand_cuda.launches
-    if eager != cfg.num_layers:
+    want = BENCH_K1_NODES["gps" if shape == "zinc" else "gps_pep"]
+    if eager != want:
         raise AssertionError(f"{label}: K1 ran {eager} times in an eager "
-                             f"step of {cfg.num_layers} layers")
+                             f"step, not {want}")
     report = {}
     graphed = check_pool_graph(label, model, l1_graph_loss, graphs * reps,
                                spec, LR, dev, report=report,
-                               per_step=cfg.num_layers)
+                               k1_min=cfg.num_layers)
     _log(label, graphs=len(graphs), N=batch.num_nodes, E=batch.num_edges,
          R=spec.num_enc_rows, M=spec.max_nodes_per_graph,
          spd_ids_per_layer=len(graphs) * spec.max_nodes_per_graph ** 2,
@@ -2607,8 +2635,8 @@ def _gps_args(work: str, cfg: str, *extra):
 def run_gps_twin(work: str, smi: str, dev):
     """`[run_gps]`: `run_gps.main` on configs/gps/zinc-GPS.yaml at its
     widths (64 x 4, 4 heads, batch 32, ESC h 3 rd, SPD bias, 512 graphs)
-    for 3 graphed epochs; its `[pool_graph]` (no port kernel on the width
-    layout), graphed = eager on the first step at rel 1e-5, and the
+    for 3 graphed epochs; its `[pool_graph]` (K1 in the attention grid's
+    gather backward), graphed = eager on the first step at rel 1e-5, and the
     spread two eager epochs show from a 1e-7 weight perturbation
     (`perturbed_rel`: the training carries rounding differences that
     far); `--eval_only` on the best checkpoint reproduces the best val
@@ -2657,8 +2685,7 @@ def run_gps_twin(work: str, smi: str, dev):
     make = lambda: run_gps.build_model(cfg, splits, 0, dev)  # noqa: E731
     loss_fn = run_gps._loss_fn(cfg)
     check_pool_graph("run_gps", make(), loss_fn, splits["train"], spec,
-                     cfg.optim.base_lr, dev, kernel=None,
-                     rel_tol=(1e-5, math.inf))
+                     cfg.optim.base_lr, dev, rel_tol=(1e-5, math.inf))
     spread = _perturbed_spread(make, loss_fn, splits["train"], spec,
                                cfg.optim.base_lr, dev)
     _log("run_gps", config=GPS_CFG, seconds=round(seconds, 3),
@@ -2744,8 +2771,8 @@ def run_gps_pep_twin(work: str, smi: str, dev):
     report = {}
     check_pool_graph("run_gps_pep", run_gps.build_model(cfg, splits, 0, dev),
                      run_gps._loss_fn(cfg), splits["train"], spec,
-                     cfg.optim.base_lr, dev, kernel=None,
-                     rel_tol=(1e-5, math.inf), report=report)
+                     cfg.optim.base_lr, dev, rel_tol=(1e-5, math.inf),
+                     report=report)
     _log("run_gps_pep", config=PEP_CFG, seconds=round(seconds, 3),
          steps_per_epoch=eps[0]["steps"], N=spec.num_nodes,
          E=spec.num_edges, M=spec.max_nodes_per_graph,
@@ -2815,7 +2842,7 @@ def run_tu_twin(work: str, smi: str, dev):
     factory = run_tu.cv_model_factory(args, 2, graphs[0].x.shape[1], dev)
     report = {}
     check_pool_graph("run_tu", factory(torch.Generator().manual_seed(0)),
-                     ce_graph_loss, train, spec, args.lr, dev, kernel=None,
+                     ce_graph_loss, train, spec, args.lr, dev,
                      rel_tol=None, report=report)
     _log("run_tu", dataset="synthetic TU (200 graphs)",
          epochs=int(TU_EPOCHS), runs=json.dumps(runs),
@@ -2978,7 +3005,10 @@ def check_small_gps(dev):
     within a graph and its BatchNorm divides a rounding residue by
     sqrt(1e-5), which the two devices round apart (on the card: entries
     of `node_const`'s and the z MLP's gradients 0.17% and 6.4% apart;
-    the CPU tests hold these gradients to JAX's)."""
+    the CPU tests hold these gradients to JAX's). Their largest gap over
+    the largest gradient is printed (`ppa_grad_max_err_over_gmax`): with
+    every sum in a fixed order it stayed 6.4e-4 on an H100, so the
+    atomics did not cause it."""
     from escgnn_tpu_torch.models.gps import GPSConfig, GPSModel
     from escgnn_tpu_torch.models.layers import bn_statistics
 
@@ -3000,7 +3030,7 @@ def check_small_gps(dev):
                     for k, p in m.named_parameters() if p.grad is not None})
         return out
 
-    errs = {}
+    errs, ppa = {}, {}
     for label, fields, host, loss_fn, kw in gps_small_cases():
         cfg = GPSConfig(dim_h=16, num_layers=2, num_heads=2, **fields)
         cpu = run(cfg, kw, host, loss_fn, "cpu")
@@ -3018,6 +3048,8 @@ def check_small_gps(dev):
                     if not torch.isfinite(gpu[k]).all():
                         raise AssertionError(f"small_gps {label} {k}: not "
                                              f"finite")
+                    ppa[f"{label} {k}"] = (gpu[k] - want).abs().max().item() / (
+                        gmax)
                     continue
                 tol = dict(rtol=1e-4, atol=1e-4 * gmax)
             elif k == "eval_running_False":
@@ -3027,7 +3059,10 @@ def check_small_gps(dev):
             err = max(err, _check_close(f"small_gps {label} {k}", gpu[k],
                                         want, **tol))
         errs[label] = err
-    _log("small_gps", cases=len(errs), max_abs_err=json.dumps(errs), ok=True)
+    worst = max(ppa, key=ppa.get) if ppa else None
+    _log("small_gps", cases=len(errs), max_abs_err=json.dumps(errs),
+         ppa_grad_max_err_over_gmax=ppa.get(worst), ppa_worst_grad=worst,
+         ok=True)
 
 
 def run_sr_twin(smi: str, dev):
@@ -3091,8 +3126,8 @@ def run_exp_twin(smi: str, dev):
     model = NestedGINEff(run_exp.model_config(args), device=dev,
                          generator=torch.Generator().manual_seed(args.seed))
     check_pool_graph("run_exp", model, ce_graph_loss, feats[200:],
-                     res["spec"], args.lr, dev, kernel=None,
-                     rel_tol=(1e-3, 5e-2))
+                     res["spec"], args.lr, dev, rel_tol=(1e-3, 5e-2),
+                     k1_min=0)
     _log("run_exp", graphs=400, splits=2, epochs=5, steps_per_epoch=7,
          test=res["test"], expressivity=res["expressivity"],
          learning=res["learning"],
@@ -3180,7 +3215,7 @@ def run_csl_twin(smi: str, dev):
                              generator=torch.Generator().manual_seed(args.seed))
         check_pool_graph("run_csl", model, ce_graph_loss, train, spec,
                          args.lr, dev, kernel=("k3", "zemb_rows_kernel"),
-                         rel_tol=(5e-2, 2e-1))
+                         rel_tol=(5e-2, 2e-1), per_step=1)
     finally:
         zemb.set_impl("countmat")
     if graphed != want or not 1 <= seen <= graphed:
@@ -3238,6 +3273,8 @@ def run_csl_twin(smi: str, dev):
 # ---------------------------------------------------------------------------
 
 K1_SYMBOL = "segsum_kernel"
+# K1's launches in each `[pool_graph]` graphed epoch, by twin
+POOL_GRAPH_K1: dict = {}
 MESH_EPOCHS = 1  # the ZINC twin's depth under each parallel mode
 # `_hold_grads`: a reference gradient under ZERO_GRAD of the largest is
 # zero to rounding (a bias that feeds a BatchNorm reads 0.0 on the card);
@@ -3246,9 +3283,14 @@ ZERO_GRAD = 1e-6
 NOISE_GRAD = 1e-4
 
 
-def _expect_k1(name: str, got: int, want: int) -> None:
-    if got != want:
-        raise AssertionError(f"{name}: K1 ran {got} times, want {want}")
+def _expect_k1(name: str, got: int, steps: int, at_least: int = 1) -> int:
+    """K1's `got` launches over `steps` steps: one count per step, at
+    least `at_least`. Returns the count per step."""
+    per = got // steps
+    if got != per * steps or per < at_least:
+        raise AssertionError(f"{name}: K1 ran {got} times in {steps} steps, "
+                             f"not one count of at least {at_least} per step")
+    return per
 
 
 def _step_losses(res):
@@ -3286,18 +3328,15 @@ def _twin_train(work: str, twin: str, res):
 
 def run_compress_pools(work: str, smi: str, dev, zinc_res, count_res) -> int:
     """`[compress_pools]`: the counting twin (400 graphs, 3 graphed
-    epochs) and the ZINC twin (1000 molecules, cut to 1 graphed epoch) run
+    epochs) and the ZINC twin (1000 molecules, 3 graphed epochs) run
     again with `--compress_pools` beside their `[run_graphcount]` /
     `[run_zinc]` runs. The train pool, built both ways on the card
     (stacked_batch_pools, k 1), decodes to the plain pool bit for bit,
-    tensor by tensor; its bytes per batch both ways are printed. The
-    counting twin's step losses, epoch losses and val MAE are bit-equal.
-    The ZINC twin is not bit-reproducible on the card without compression
-    either (sums in no fixed order, amplified by Adam): a second plain
-    ZINC epoch is run beside the compressed one, and both are held to
-    `[run_zinc]`'s first epoch with the first step's loss bit-equal and
-    the later ones at rtol 1e-3, as `[pool_graph]` holds them. K1 runs
-    once per graphed step; the graphed ms/step is printed both ways.
+    tensor by tensor; its bytes per batch both ways are printed. Each
+    twin's step losses, epoch losses and val MAE are bit-equal to its
+    plain run's, and the ZINC twin run a second time without compression
+    gives them bit for bit again: every sum adds in a fixed order. K1
+    runs once per graphed step; the graphed ms/step is printed both ways.
     Returns K1's graphed launches in the compressed runs."""
     from escgnn_tpu_torch import run_graphcount as rg
     from escgnn_tpu_torch import run_zinc
@@ -3308,7 +3347,7 @@ def run_compress_pools(work: str, smi: str, dev, zinc_res, count_res) -> int:
     runs = (
         ("run_graphcount", rg.main, count_res, 3, 3,
          ["--num_graphs", "400"]),
-        ("run_zinc", run_zinc.main, zinc_res, 7, 1,
+        ("run_zinc", run_zinc.main, zinc_res, 7, 3,
          ["--num_graphs", "1000", "--num_workers", "2"]),
     )
     total = 0
@@ -3321,21 +3360,17 @@ def run_compress_pools(work: str, smi: str, dev, zinc_res, count_res) -> int:
         seconds = time.perf_counter() - t0
         _check_epochs(twin + " --compress_pools", comp, steps)
         fields = {}
-        if epochs == len(plain["epochs"]):
+        again = {"compressed": comp}
+        if twin == "run_zinc":
+            again["plain_rerun"] = main_fn(argv + [
+                "--res_dir", os.path.join(work, twin + "_rerun")])
+        for name, res in again.items():
             for key in ("loss", "val_mae", "step_losses"):
-                if ([e[key] for e in comp["epochs"]]
+                if ([e[key] for e in res["epochs"]]
                         != [e[key] for e in plain["epochs"]]):
-                    raise AssertionError(f"{twin}: {key} with compressed "
-                                         f"pools differs from the plain run")
-            fields["bit_equal"] = True
-        else:
-            want = _step_losses(plain)[:steps * epochs]
-            rerun = main_fn(argv + ["--res_dir",
-                                    os.path.join(work, twin + "_rerun")])
-            for name, res in (("compressed", comp), ("plain_rerun", rerun)):
-                rel = _hold_losses(f"{twin} {name}", _step_losses(res), want,
-                                   first_rtol=0.0)
-                fields[f"{name}_max_loss_rel"] = max(rel)
+                    raise AssertionError(f"{twin} {name}: {key} differs from "
+                                         f"the plain run's")
+            fields[f"{name}_bit_equal"] = True
         _expect_k1(f"{twin} --compress_pools graphed", k1, steps * epochs)
         total += k1
         train = _twin_train(work, twin, plain)
@@ -3484,7 +3519,7 @@ def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
         seconds = time.perf_counter() - t0
         _check_epochs(f"run_zinc --mesh {mode}", res, steps=7)
         rel = _hold_losses(f"run_zinc --mesh {mode}", _step_losses(res), want)
-        _expect_k1(f"--mesh {mode} graphed", n, 7 * MESH_EPOCHS)
+        per_step = _expect_k1(f"--mesh {mode} graphed", n, 7 * MESH_EPOCHS)
         k1[f"mesh_{mode}"] = n
         _log("mesh_world1", mode=mode, backend="nccl", world=1,
              seconds=round(seconds, 3), epochs=MESH_EPOCHS,
@@ -3493,14 +3528,16 @@ def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
              graphed_ms_per_step=json.dumps(
                  [round(e["train_seconds"] / e["steps"] * 1e3, 4)
                   for e in res["epochs"]]),
-             k1_graphed_launches=n, card=json.dumps(smi), ok=True)
+             k1_graphed_launches=n, k1_per_step=per_step,
+             card=json.dumps(smi), ok=True)
 
     t0 = time.perf_counter()
     hres, n = _watched(lambda: run_zinc.main(
         argv + ["--mesh", "halo", "--res_dir", os.path.join(work, "zinc_h")]))
     seconds = time.perf_counter() - t0
     _check_epochs("run_zinc --mesh halo", hres, steps=7)
-    _expect_k1("--mesh halo graphed", n, 0)
+    halo_per_step = _expect_k1("--mesh halo graphed", n, 7 * MESH_EPOCHS)
+    k1["mesh_halo"] = n
     inputs = _mesh_inputs(work, zinc_res, hres["spec"])
     plain = _zinc_model(dev)
     sharded = copy.deepcopy(plain)
@@ -3512,8 +3549,7 @@ def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
         sharded, torch.optim.SGD(sharded.parameters(), lr=1e-2), "model",
         graph_loss_fn=l1_graph_loss)(shard))
     _hold_losses("halo step", [hloss], [loss])
-    # both sides sum with atomics in their own order: 1.5e-6 to 2.7e-4 of
-    # the norm read in five chip runs
+    # the sharded step adds its sums in another order than one process's
     gerr, n_zero, zero_max = _hold_grads("halo step", _grads(sharded), grads,
                                          rel=1e-2)
     _log("mesh_world1", mode="halo", backend="nccl", world=1,
@@ -3524,7 +3560,8 @@ def run_mesh_world1(work: str, smi: str, dev, zinc_res, count_res) -> dict:
               for e in hres["epochs"]]),
          step_loss=hloss, plain_step_loss=loss, max_grad_rel_err=gerr,
          zero_grads=n_zero, zero_grads_max_norm_rel=zero_max,
-         kernels="none (width layout)", card=json.dumps(smi), ok=True)
+         k1_graphed_launches=n, k1_per_step=halo_per_step,
+         card=json.dumps(smi), ok=True)
     # slice 13: the halo module's toy GINE stack on the same batch
     inputs.update(run_halo_toy_world1(inputs["C"], mesh, dev, smi))
 
@@ -3618,10 +3655,8 @@ def run_mesh_2rank(work: str, smi: str, dev, inputs: dict) -> dict:
                 f"2-rank {mode} rank {r}", got_grads, want_grads, rel=bound)
             errs.append(err)
             zeros.append(zero_max)
-        want_k1 = 0 if mode == "halo" else 1
-        _expect_k1(f"2-rank {mode} step", ranks[0][mode][2], want_k1)
-        if want_k1:
-            k1[f"mesh_2rank_{mode}"] = ranks[0][mode][2]
+        _expect_k1(f"2-rank {mode} step", ranks[0][mode][2], 1)
+        k1[f"mesh_2rank_{mode}"] = ranks[0][mode][2]
         _log("mesh_2rank", mode=mode, backend="gloo", world=2,
              device="cuda:0 shared", loss=ranks[0][mode][0],
              reference_loss=want_loss, max_grad_rel_err=max(errs),
@@ -3797,7 +3832,7 @@ def _flat_pair(label, make_model, graphs, lr, dev, smi):
         k1[lay] = check_pool_graph(
             f"{label}_{lay}", model, l1_graph_loss, graphs * FLAT_REPS,
             specs[lay], lr, dev, report=reports[lay],
-            per_step=layers * (2 if lay == "flat" else 1))
+            k1_min=layers * (2 if lay == "flat" else 1))
     r_f, r_d = reports["flat"], reports["dedup"]
     _log("flat", model=label, graphs=len(graphs), E=specs["flat"].num_edges,
          K_budget=K, K_entries=entries, R=specs["dedup"].num_enc_rows,
@@ -3903,8 +3938,11 @@ def run_packed(work: str, zinc_res, dev, smi) -> int:
             pool = stack_batches([batch_from_arrays(a, spec, "cpu")
                                   for a in packed]).to(dev)
     report = {}
+    # the ragged GINE messages and pooling sum through K1 in a fixed order:
+    # graphed and eager held at 1e-5 in every step
     k1 = check_pool_graph("packed_dedup", _zinc_model(dev), l1_graph_loss,
-                          None, None, args.lr, dev, report=report, pool=pool)
+                          None, None, args.lr, dev, report=report, pool=pool,
+                          rel_tol=(1e-5, 1e-5))
     _log("packed", graphs=len(train), batch=args.batch_size,
          dedup_packed_batches=counts["dedup"][0],
          dedup_fixed_batches=counts["dedup"][1],
@@ -4190,10 +4228,13 @@ def run_ogb_flag(dev, smi) -> None:
 # the bench twin: bench.py's ten lines as graphed train steps
 # ---------------------------------------------------------------------------
 
-# K1's nodes in each bench line's captured step: the flagship's and OGB's
-# one dedup expansion, GPS's one per layer; the other six lines have no
-# dedup rows (PPGN keeps JAX's default z impl and pool: no port kernel)
-BENCH_K1_NODES = {"flagship": 1, "ogb": 1, "gps": 4, "gps_pep": 10}
+# K1's nodes in each bench line's captured step: the dedup expansion's
+# backward (flagship, OGB, GPS per layer), every segment sum, and the
+# backward of every row gather and embedding lookup (`embed_take`);
+# PPGN_eff writes dense grids and looks nothing up: no K1
+BENCH_K1_NODES = {"flagship": 4, "ogb": 2, "gps": 14, "gps_pep": 32,
+                  "k123": 34, "ngnn": 13, "i2gnn": 14, "ginep": 6,
+                  "nppgn": 1}
 
 
 def _bench_short(metric: str) -> str:
@@ -4317,9 +4358,12 @@ def run_bench(dev, smi) -> dict:
             raise AssertionError(f"bench {short}: {ledger.replays[i]} "
                                  f"replays for {replays} steps")
         nodes = _dot_nodes(ledger.dots[i], "segsum_kernel")
-        if nodes != BENCH_K1_NODES.get(short, 0):
+        counted = res.cost.by_op.get("sorted_segment_sum")
+        counted = counted.calls if counted else 0
+        if nodes != BENCH_K1_NODES.get(short, 0) or nodes != counted:
             raise AssertionError(f"bench {short}: K1 {nodes} times in the "
-                                 f"captured step, not "
+                                 f"captured step ({counted} in the counted "
+                                 f"eager step), not "
                                  f"{BENCH_K1_NODES.get(short, 0)}")
         k1 = nodes * ledger.replays[i]
         if nodes:
@@ -4338,6 +4382,118 @@ def run_bench(dev, smi) -> dict:
          k1_eager_launches=eager_k1, k1_graphed=json.dumps(paths),
          card=json.dumps(smi), ok=True)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# slice 16: sums in a fixed order
+# ---------------------------------------------------------------------------
+
+
+def check_k1_sum(call, dev, label: str) -> dict:
+    """K1 at one sum a step makes (`determinism_probe.record_k1_calls`):
+    random values of the call's shape and dtype summed over its sorted
+    ids, against the f64 sum of the same values (rtol 1e-5, atol 1e-4)
+    and bit-equal from run to run; CUDA-graph-timed ms beside the plain
+    version's, `index_add_`'s on the unsorted ids (the library call), the
+    bytes bound and the stable sort that builds the view (`sort_ms`)."""
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    (E, H), dtype, perm, rows, R = call
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dZ = torch.randn(E, H, device=dev, generator=gen).to(dtype)
+    got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
+    ids = torch.empty_like(rows).scatter_(0, perm.long(), rows).long()
+    want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
+        0, ids, dZ.double())
+    err = _check_close(f"K1 {label}", got, want.float(), rtol=1e-5,
+                       atol=1e-4)
+    if not torch.equal(got, expand_cuda.sorted_segment_sum(dZ, perm, rows,
+                                                           R)):
+        raise AssertionError(f"K1 {label}: not deterministic")
+    ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows, R))
+    plain_ms = _cuda_ms(
+        lambda: expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R))
+    library_ms = _cuda_ms(lambda: torch.zeros(
+        R, H, dtype=dtype, device=dev).index_add_(0, ids, dZ))
+    ids32 = ids.to(torch.int32)
+    sort_ms = _cuda_ms(lambda: torch.sort(ids32, stable=True))
+    bound_ms, bound_by = _bound(
+        E * H * dZ.element_size() + 2 * E * 4 + R * H * 4, E * H)
+    return dict(shape=f"E={E},R={R},H={H},{str(dtype)[6:]}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                sort_ms=sort_ms)
+
+
+# the steps of tools/determinism_probe.py whose sums K1 is held at: the
+# two largest (E x H) per step
+K1_SHAPE_STEPS = ("packed", "k123", "gps_zinc", "gps_pep", "tu")
+
+
+def run_determinism(dev, smi) -> dict:
+    """`[determinism]`: the steps of `tools/determinism_probe.py` (the
+    ZINC twin's, packed, flat, the `run_tu` fold's and seven bench lines:
+    k123, NGNN, I2GNN, GINE+, OGB, GPS ZINC and GPS peptides) at their
+    shapes. Each: a warm-up, then two eager steps from one state (the
+    model built anew from its seed, a fresh Adam) with bit-equal losses
+    and gradients, then two graphed epochs of one pool (its batches twice
+    over, the captured step replayed, weights, Adam and generators put
+    back between) with bit-equal losses. Then K1 against its f64 sum at
+    the two largest sums of the packed ZINC step (its graph pooling and
+    ragged GINE messages), k123's set edges, the GPS attention grids and
+    the TU pooling (`check_k1_sum`). Per step it prints K1's launches and
+    one profiled eager step's busy ms, its K1 ms and its sort kernels' ms
+    (the views' stable sorts). Returns K1's numbers by shape."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import determinism_probe as probe
+    from escgnn_tpu_torch.ops import expand_cuda
+    from escgnn_tpu_torch.train.loop import adam_with_plateau, train_step
+
+    t0 = time.perf_counter()
+    cases = probe.build_cases(dev, probe.STEPS, num_workers=2)
+    build_s = time.perf_counter() - t0
+    steps = {}
+    for name, case in cases.items():
+        eager = probe.eager_twice(case)
+        if not (eager["loss_equal"] and eager["grads_equal"]):
+            raise AssertionError(f"determinism {name}: two eager steps from "
+                                 f"one state differ: {eager}")
+        first, second = probe.graphed_twice(case)
+        if first != second:
+            raise AssertionError(f"determinism {name}: two graphed epochs "
+                                 f"from one state gave {first} and {second}")
+        model = case.make_model()
+        opt = adam_with_plateau(model.parameters(), case.lr)
+        train_step(model, opt, case.batches[0], case.loss_fn)
+        expand_cuda.launches = 0
+        _, prof = _profiled(lambda: train_step(model, opt, case.batches[0],
+                                               case.loss_fn))
+        ms = lambda part: sum(  # noqa: E731
+            e.time_range.elapsed_us() for e in _device_events(prof, part)
+        ) / 1e3
+        steps[name] = dict(
+            loss=eager["losses"][0], graphed=first,
+            k1_per_step=expand_cuda.launches, busy_ms=_busy_ms(prof),
+            k1_ms=ms(K1_SYMBOL), sort_ms=ms("Sort") + ms("sort"),
+            kernels=_kernel_events(prof))
+    shapes = {}
+    for name in K1_SHAPE_STEPS:
+        calls = sorted(probe.record_k1_calls(cases[name]),
+                       key=lambda c: -c[0][0] * c[0][1])
+        seen = []
+        for call in calls:
+            if call[0] not in seen and len(seen) < 2:
+                seen.append(call[0])
+                got = check_k1_sum(call, dev, name)
+                shapes[f"{name}_{got['shape']}"] = got
+    _log("determinism", steps=len(steps), build_s=round(build_s, 3),
+         seconds=round(time.perf_counter() - t0, 3),
+         per_step=json.dumps(steps), k1_shapes=json.dumps(shapes),
+         card=json.dumps(smi), ok=True)
+    return shapes
 
 
 def main() -> int:
@@ -4416,12 +4572,14 @@ def main() -> int:
     init_state = copy.deepcopy(model.state_dict())
     expand_cuda.launches = 0
     zemb_cuda.launches = 0
-    losses, step_ms = [], []
+    losses, step_ms, k1_steps = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
+        k1_before = expand_cuda.launches
         losses.append(train_step(model, opt, batch, l1_graph_loss))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1_steps.append(expand_cuda.launches - k1_before)
     err_sum, count = eval_step(model, batch, node_level=False)
     with torch.no_grad():
         out = model.eval()(batch)
@@ -4436,8 +4594,10 @@ def main() -> int:
         raise AssertionError(f"non-finite loss or MAE: {losses} {mae}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    if main_launches["k1"] != TRAIN_STEPS:
-        raise AssertionError(f"K1 launched {main_launches['k1']} times in "
+    # K1 per step: the z expansion's backward and the three embedding
+    # lookups' (node and edge types, the active z-table rows)
+    if k1_steps != [BENCH_K1_NODES["flagship"]] * TRAIN_STEPS:
+        raise AssertionError(f"K1 launched {k1_steps} times in "
                              f"{TRAIN_STEPS} steps")
     ms_step = statistics.median(step_ms[1:])
     _log("train", steps=TRAIN_STEPS, hidden=256, layers=5,
@@ -4510,7 +4670,7 @@ def main() -> int:
                     "run_qm9": run_qm9_twin(work, smi),
                     "run_ogb_mol": run_ogb_mol_twin(work, smi, dev)}
         # the copy family: this slice's main path, I2GNN, then NGNN, the
-        # bucketed layout and NestedPPGN (no port kernel on these paths)
+        # bucketed layout and NestedPPGN (K1 in the copy family's sums)
         i2gnn = run_copy_zinc_twin(work, smi, "I2GNN", dev)
         run_copy_zinc_twin(work, smi, "NGNN", dev)
         check_copy_bucketed(i2gnn, smi, dev)
@@ -4521,7 +4681,7 @@ def main() -> int:
     run_exp_twin(smi, dev)
     k3_csl = run_csl_twin(smi, dev)
     # 11. the rest of the zoo: the k-GNNs, GINE+, the RGCN baseline and the
-    # registry (no port kernel on these paths)
+    # registry (K1 in their sums)
     with tempfile.TemporaryDirectory() as work:
         run_qm9_kgnn_twins(work, smi, dev)
         run_ogb_gineplus_twin(work, smi, dev)
@@ -4549,13 +4709,18 @@ def main() -> int:
     run_ogb_flag(dev, smi)
     # 15. the bench twin: bench.py's ten lines at full size, graphed
     k1_paths.update(run_bench(dev, smi))
+    # 16. slice 16: two runs of each step from one state, bit for bit, and
+    # K1 at the sums it now takes
+    k1_sums = run_determinism(dev, smi)
 
     kernels = [
         dict(name="sorted_segment_sum", route="cuda",
              source="escgnn_tpu_torch/csrc/expand_segsum.cu",
              replaces="escgnn_tpu/ops/expand_pallas.py:53",
-             launches=main_launches["k1"], paths=k1_paths,
-             shapes={"gps_bench": k1_gps, "gps_pep": k1_pep}, **k1),
+             launches=main_launches["k1"],
+             paths=dict(k1_paths, pool_graph=POOL_GRAPH_K1),
+             shapes={"gps_bench": k1_gps, "gps_pep": k1_pep, **k1_sums},
+             **k1),
         dict(name="zemb_countmat", route="cuda",
              source="escgnn_tpu_torch/csrc/zemb_countmat.cu",
              replaces="escgnn_tpu/ops/zemb_pallas.py:114",

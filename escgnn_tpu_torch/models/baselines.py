@@ -44,6 +44,7 @@ from escgnn_tpu_torch.models.pooling import (
     graph_pool_width,
 )
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     segment_max,
     segment_mean,
@@ -71,8 +72,7 @@ def gcn_norm(receivers, senders, num_nodes: int, edge_mask):
     loop: the normalization of a GCN conv with analytic self loops."""
     deg = _degree(receivers, num_nodes, edge_mask) + 1.0
     inv_sqrt = torch.rsqrt(deg.clamp_min(1e-12))
-    w = inv_sqrt.index_select(0, senders.long()) * inv_sqrt.index_select(
-        0, receivers.long())
+    w = gather_rows(inv_sqrt, senders) * gather_rows(inv_sqrt, receivers)
     return w, inv_sqrt * inv_sqrt
 
 
@@ -82,19 +82,19 @@ def self_loop_attention(h, alpha_src, alpha_dst, senders, receivers,
     {neighbours} u {self} of LeakyReLU(alpha_src[j] + alpha_dst[i]) weights
     h[j] and h[i]; h (N, H, F), alphas (N, H). Returns (N, H, F)."""
     n = h.shape[0]
-    s, r = senders.long(), receivers.long()
-    logits = F.leaky_relu(alpha_src.index_select(0, s)
-                          + alpha_dst.index_select(0, r), negative_slope)
+    s, r = senders, receivers
+    logits = F.leaky_relu(gather_rows(alpha_src, s)
+                          + gather_rows(alpha_dst, r), negative_slope)
     self_logit = F.leaky_relu(alpha_src + alpha_dst, negative_slope)
     mx = segment_max(logits, r, n, mask=edge_mask, empty_value=-math.inf)
     mx = torch.maximum(mx, self_logit)
     ex_e = torch.where(edge_mask[:, None],
-                       torch.exp(logits - mx.index_select(0, r)),
+                       torch.exp(logits - gather_rows(mx, r)),
                        torch.zeros((), dtype=logits.dtype,
                                    device=logits.device))
     ex_s = torch.exp(self_logit - mx)
     denom = (segment_sum(ex_e, r, n) + ex_s).clamp_min(1e-16)
-    num = (segment_sum(h.index_select(0, s) * ex_e[..., None], r, n)
+    num = (segment_sum(gather_rows(h, s) * ex_e[..., None], r, n)
            + h * ex_s[..., None])
     return num / denom[..., None]
 
@@ -114,7 +114,7 @@ class GCNConv(nn.Module):
         n = x.shape[0]
         h = self.lin(x)
         w, self_w = gcn_norm(receivers, senders, n, edge_mask)
-        agg = segment_sum(h.index_select(0, senders.long()) * w[:, None],
+        agg = segment_sum(gather_rows(h, senders) * w[:, None],
                           receivers, n, edge_mask)
         return agg + h * self_w[:, None] + self.bias
 
@@ -134,13 +134,13 @@ class DirectionalGCNConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_mask, z):
         n = x.shape[0]
-        s, r = senders.long(), receivers.long()
+        s, r = senders, receivers
         h = self.lin(x)
         w, _ = gcn_norm(receivers, senders, n, edge_mask)
         zs, zr = z.index_select(0, s).long(), z.index_select(0, r).long()
         tie = ((s < r) & (zs == zr)).long()
         up = (tie + zs) < zr
-        msg = h.index_select(0, s) * w[:, None]
+        msg = gather_rows(h, s) * w[:, None]
         agg_up = segment_sum(msg, r, n, mask=edge_mask & up)
         agg_dn = segment_min(msg, r, n, mask=edge_mask & ~up)
         return agg_up + agg_dn + self.bias
@@ -157,7 +157,7 @@ class SAGEConv(nn.Module):
                                 generator=generator)
 
     def forward(self, x, senders, receivers, edge_mask):
-        agg = segment_mean(x.index_select(0, senders.long()), receivers,
+        agg = segment_mean(gather_rows(x, senders), receivers,
                            x.shape[0], mask=edge_mask)
         return self.lin_l(agg) + self.lin_r(x)
 
@@ -173,7 +173,7 @@ class GINConv(nn.Module):
             self.eps = nn.Parameter(torch.zeros(()))
 
     def forward(self, x, senders, receivers, edge_mask, node_mask=None):
-        agg = segment_sum(x.index_select(0, senders.long()), receivers,
+        agg = segment_sum(gather_rows(x, senders), receivers,
                           x.shape[0], edge_mask)
         eps = self.eps if hasattr(self, "eps") else 0.0
         return self.mlp((1.0 + eps) * x + agg, node_mask)
@@ -227,7 +227,7 @@ class RGCNConv(nn.Module):
         R, _, Fo = self.w_rel.shape
         xw = torch.einsum("nf,rfg->nrg", x.float(), self.w_rel)
         rows = senders.long() * R + edge_type_ids(edge_type)
-        msg = xw.reshape(n * R, Fo).index_select(0, rows)
+        msg = gather_rows(xw.reshape(n * R, Fo), rows)
         return segment_sum(msg, receivers, n, edge_mask) + self.lin_root(x)
 
 
@@ -263,9 +263,9 @@ class PNAConv(nn.Module):
         n = x.shape[0]
         T = self.towers
         xt = x.reshape(n, T, -1)
-        r = receivers.long()
-        src = xt.index_select(0, senders.long())
-        parts = [xt.index_select(0, r), src]
+        r = receivers
+        src = gather_rows(xt, senders)
+        parts = [gather_rows(xt, r), src]
         if edge_attr is not None and self.lin_edge is not None:
             e = self.lin_edge(edge_attr.to(torch.float32).reshape(
                 edge_attr.shape[0], -1))

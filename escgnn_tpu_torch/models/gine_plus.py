@@ -52,6 +52,7 @@ from escgnn_tpu_torch.models.ogb_gnn import (
     FeatureSumEncoder,
 )
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     pool_nodes_to_graphs,
     segment_mean,
@@ -84,8 +85,8 @@ class GINEPlusConv(nn.Module):
         dd = (d - 1).clamp(0, k - 1)
         if self.cdt != torch.float32:
             hist, bond_emb = hist.to(self.cdt), bond_emb.to(self.cdt)
-        x_src = hist.reshape(k * n, -1).index_select(
-            0, dd * n + batch.senders.long())
+        x_src = gather_rows(hist.reshape(k * n, -1),
+                            dd * n + batch.senders.long())
         msg = x_src + torch.where((d == 1)[:, None], bond_emb,
                                   torch.zeros((), dtype=bond_emb.dtype,
                                               device=bond_emb.device))
@@ -186,7 +187,7 @@ class GINEPlusNetwork(nn.Module):
             if cfg.virtual_node:
                 xx[0] = xx[0] + (
                     vn[:, None, :].expand(G, n_u, -1).reshape(h.shape[0], -1)
-                    if uniform else vn.index_select(0, node_graph))
+                    if uniform else gather_rows(vn, node_graph))
             bond_emb = getattr(self, f"bond_encoder_{layer}")(batch.edge_attr)
             h = getattr(self, f"conv{layer}")(xx, batch, distance, bond_emb)
             h = getattr(self, f"norm{layer}")(h, nm)
@@ -212,7 +213,7 @@ class GINEPlusNetwork(nn.Module):
             pool = segment_sum if cfg.subgraph_pooling == "sum" else (
                 segment_mean)
             h = pool(h, seg, S, mask=nm)
-            g = segment_mean(h, masked_ids(batch.segment_graph, sm), G,
+            g = segment_mean(h, batch.segment_graph, G,
                              mask=sm)
         else:
             g = pool_nodes_to_graphs(h, batch, "mean")

@@ -34,7 +34,7 @@ cannot reproduce, so a test that compares the two loads JAX's matrix
 through `weights.load_flax_variables(..., constants=...)`.
 
 The SPD-bias lookup's backward is the one-hot product (JAX's `EmbedMM`):
-`F.embedding`'s backward sorts the G * M * M ids of every layer.
+a sorted backward would sort the G * M * M ids of every layer.
 
 Dropout draws from the model's generator `rng` in `train()` only; with
 dropout > 0 the ESC embedding takes the per-edge path (rows expanded
@@ -68,6 +68,7 @@ from escgnn_tpu_torch.models.ogb_gnn import (
     FeatureSumEncoder,
 )
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     pool_nodes_to_graphs,
     segment_softmax,
     segment_sum,
@@ -212,8 +213,8 @@ class DenseGrid:
     def gather(self, grid: torch.Tensor) -> torch.Tensor:
         """(G, M, ...) -> (N, ...), padding rows read cell (g, M - 1)."""
         rest = tuple(grid.shape[2:])
-        return grid.reshape((self.G * self.M,) + rest).index_select(
-            0, self.take)
+        return gather_rows(grid.reshape((self.G * self.M,) + rest),
+                           self.take)
 
 
 class _OneHotEmbed(torch.autograd.Function):
@@ -319,6 +320,8 @@ def _fake_grid(self_attn, h, batch: GraphBatch, M: int):
     loc = batch.node_local.long().clamp(max=M)
     src_l, dst_l = loc.index_select(0, send), loc.index_select(0, recv)
     cell = (e_g * (M + 1) + src_l) * (M + 1) + dst_l
+    # an atomic sum may stay: its terms are 0/1 edge flags, small integers
+    # exact in f32 in any order
     cnt = torch.zeros(G * (M + 1) * (M + 1), device=h.device).index_add_(
         0, cell, batch.edge_mask.to(torch.float32))
     real = (cnt > 0).reshape(G, M + 1, M + 1)[:, :M, :M]
@@ -347,8 +350,8 @@ class _SANBase(nn.Module):
         k = self.k(h).reshape(N, Hh, hd)
         v = self.v(h).reshape(N, Hh, hd)
         e = self.e(edge_attr).reshape(-1, Hh, hd)
-        send, recv = batch.senders.long(), batch.receivers.long()
-        s = (k.index_select(0, send) * q.index_select(0, recv) * e).sum(-1)
+        send, recv = batch.senders, batch.receivers
+        s = (gather_rows(k, send) * gather_rows(q, recv) * e).sum(-1)
         return s / math.sqrt(hd), v
 
 
@@ -371,7 +374,7 @@ class SANAttention(_SANBase):
         if self.full_graph:
             s = s / (self.gamma + 1.0)
         recv = batch.receivers
-        msg = v.index_select(0, batch.senders.long()) * s[..., None]
+        msg = gather_rows(v, batch.senders) * s[..., None]
         wV = segment_sum(msg.reshape(-1, Hh * hd), recv, N,
                          mask=batch.edge_mask).reshape(N, Hh, hd)
         Z = segment_sum(s, recv, N, mask=batch.edge_mask)
@@ -404,7 +407,7 @@ class SAN2Attention(_SANBase):
         hd = self.D // Hh
         s, v = self._real_scores(h, edge_attr, batch)
         attn = segment_softmax(s, batch.receivers, N, mask=batch.edge_mask)
-        msg = v.index_select(0, batch.senders.long()) * attn[..., None]
+        msg = gather_rows(v, batch.senders) * attn[..., None]
         wV = segment_sum(msg.reshape(-1, Hh * hd), batch.receivers, N,
                          mask=batch.edge_mask).reshape(N, Hh, hd)
         if self.full_graph:
@@ -443,17 +446,17 @@ class GatedGCNConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask, pe=None):
         n = x.shape[0]
-        send, recv = senders.long(), receivers.long()
-        e = (self.A(x.index_select(0, recv)) + self.B(x.index_select(0, send))
+        send, recv = senders, receivers
+        e = (self.A(gather_rows(x, recv)) + self.B(gather_rows(x, send))
              + self.C(edge_attr))
         gate = torch.sigmoid(e) * edge_mask[:, None]
         if pe is not None:
-            r = ((pe.index_select(0, recv) - pe.index_select(0, send)) ** 2
+            r = ((gather_rows(pe, recv) - gather_rows(pe, send)) ** 2
                  ).sum(-1, keepdim=True)
             r = torch.sigmoid(self.r_mlp2(F.relu(self.r_mlp1(r))))
             gate = gate * r
         v = self.V(x)
-        num = segment_sum(gate * v.index_select(0, send), receivers, n)
+        num = segment_sum(gate * gather_rows(v, send), receivers, n)
         den = segment_sum(gate, receivers, n)
         return self.U(x) + num / (den + 1e-6), e
 
@@ -485,8 +488,8 @@ class LinearAttention(nn.Module):
                          ng, G, mask=mask).reshape(G, Hh, m, hd)
         ksum = segment_sum(kf.reshape(n, -1), ng, G, mask=mask).reshape(
             G, Hh, m)
-        kv_n = kv.index_select(0, ng.long())
-        ks_n = ksum.index_select(0, ng.long())
+        kv_n = gather_rows(kv, ng)
+        ks_n = gather_rows(ksum, ng)
         num = torch.einsum("nhm,nhmd->nhd", qf, kv_n)
         den = torch.einsum("nhm,nhm->nh", qf, ks_n).clamp_min(den_floor)
         return self.out((num / den[..., None]).reshape(n, self.D))

@@ -36,6 +36,7 @@ from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.models.layers import EmbedMM, MaskedBatchNorm, TorchDense
 from escgnn_tpu_torch.models.ngnn import NGNNGINConv, _dtype, node_type_input
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     pool_copy_blocks,
     segment_mean,
@@ -150,10 +151,10 @@ class I2GNN(nn.Module):
             if b is not None:
                 return b
             fn = segment_mean if reduce == "mean" else segment_sum
-            return fn(v, masked_ids(batch.node_segment2, nm), S2, mask=nm)
+            return fn(v, batch.node_segment2, S2, mask=nm)
 
         def center(col):
-            return x.index_select(0, batch.center_idx[:, col].long())
+            return gather_rows(x, batch.center_idx[:, col])
 
         sp2 = cfg.subgraph2_pooling
         if sp2 in ("mean", "mean-center-side") and gate:

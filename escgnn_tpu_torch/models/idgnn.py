@@ -30,7 +30,7 @@ from escgnn_tpu_torch.models.baselines import (
 )
 from escgnn_tpu_torch.models.layers import MLP, Dropout, TorchDense
 from escgnn_tpu_torch.models.ngnn import copy_roots
-from escgnn_tpu_torch.ops.segment import masked_ids, segment_mean, segment_sum
+from escgnn_tpu_torch.ops.segment import gather_rows, segment_mean, segment_sum
 
 
 class _IdConv(nn.Module):
@@ -61,7 +61,7 @@ class GINIDConv(nn.Module):
         self.mlp_id = mlp_id
 
     def forward(self, x, senders, receivers, edge_mask, is_root, node_mask):
-        agg = segment_sum(x.index_select(0, senders.long()), receivers,
+        agg = segment_sum(gather_rows(x, senders), receivers,
                           x.shape[0], edge_mask & (senders != receivers))
         h = x + agg
         out = self.mlp(h, node_mask)
@@ -77,7 +77,7 @@ class GCNIDConv(_IdConv):
         n = x.shape[0]
         h = self.id_transform(x, is_root)
         w, self_w = gcn_norm(receivers, senders, n, edge_mask)
-        agg = segment_sum(h.index_select(0, senders.long()) * w[:, None],
+        agg = segment_sum(gather_rows(h, senders) * w[:, None],
                           receivers, n, edge_mask)
         return agg + h * self_w[:, None] + self.bias
 
@@ -88,7 +88,7 @@ class SAGEIDConv(_IdConv):
 
     def forward(self, x, senders, receivers, edge_mask, is_root):
         h = self.id_transform(x, is_root)
-        agg = segment_mean(h.index_select(0, senders.long()), receivers,
+        agg = segment_mean(gather_rows(h, senders), receivers,
                            x.shape[0], mask=edge_mask)
         return agg + h + self.bias
 
@@ -200,9 +200,9 @@ class IDGNN(nn.Module):
 
         if copies:
             sm = batch.segment_mask
-            h = segment_mean(h, masked_ids(batch.node_segment, nm), S,
+            h = segment_mean(h, batch.node_segment, S,
                              mask=nm)
-            h = segment_mean(h, masked_ids(batch.segment_graph, sm),
+            h = segment_mean(h, batch.segment_graph,
                              batch.num_graphs, mask=sm)
         else:
             h = segment_mean(h, batch.node_graph, batch.num_graphs, mask=nm)

@@ -38,7 +38,12 @@ from torch import nn
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.device import resolve_device
 from escgnn_tpu_torch.models.layers import TorchDense, TorchEmbed
-from escgnn_tpu_torch.ops.segment import masked_ids, segment_mean, segment_sum
+from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
+    masked_ids,
+    segment_mean,
+    segment_sum,
+)
 
 
 class NNConv(nn.Module):
@@ -59,7 +64,7 @@ class NNConv(nn.Module):
         e = edge_attr.float().reshape(edge_attr.shape[0], -1)
         w = self.edge_nn_1(F.relu(self.edge_nn_0(e)))
         w = w.reshape(-1, f_in, self.features)
-        msg = torch.bmm(x.index_select(0, senders.long())[:, None, :],
+        msg = torch.bmm(gather_rows(x, senders)[:, None, :],
                         w)[:, 0]
         agg = segment_sum(msg, receivers, n, edge_mask)
         return agg + self.root(x)
@@ -77,19 +82,17 @@ class KSetGraphConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_mask):
         n = x.shape[0]
-        recv = masked_ids(receivers, edge_mask)
         h = self.weight(x)
-        agg = segment_sum(h.index_select(0, senders.long()), recv, n,
-                          edge_mask)
-        deg = segment_sum(edge_mask.to(agg.dtype), recv, n)
+        agg = segment_sum(gather_rows(h, senders), receivers, n, edge_mask)
+        deg = segment_sum(edge_mask.to(agg.dtype), receivers, n, edge_mask)
         return agg / deg.clamp_min(1.0)[:, None] + self.root(x)
 
 
 def avg_pool_assignment(x, assign_node, assign_set, assign_mask,
                         num_sets: int):
     """k_gnn avg_pool: the mean of the member-node rows of each set."""
-    return segment_mean(x.index_select(0, assign_node.long()),
-                        masked_ids(assign_set, assign_mask), num_sets,
+    return segment_mean(gather_rows(x, assign_node),
+                        assign_set, num_sets,
                         mask=assign_mask)
 
 
@@ -182,7 +185,7 @@ class KGNN(nn.Module):
 
         if cfg.nested:
             S = batch.segment_mask.shape[0]
-            x_1 = segment_mean(x, masked_ids(batch.node_segment, nm), S,
+            x_1 = segment_mean(x, batch.node_segment, S,
                                mask=nm)
         else:
             x_1 = segment_mean(x, batch.node_graph, G, mask=nm)
@@ -209,13 +212,13 @@ class KGNN(nn.Module):
                 owner, rows = ex[f"kset{lvl}_to_subgraph"], S
             else:
                 owner, rows = ex[f"kset{lvl}_graph"], G
-            parts.append(segment_mean(xs, masked_ids(owner, set_mask), rows,
+            parts.append(segment_mean(xs, owner, rows,
                                       mask=set_mask))
 
         h = torch.cat(parts, dim=-1)
         if cfg.nested:
             sm = batch.segment_mask
-            h = segment_mean(h, masked_ids(batch.segment_graph, sm), G,
+            h = segment_mean(h, batch.segment_graph, G,
                              mask=sm)
         h = F.elu(self.fc1(h))
         h = F.elu(self.fc2(h))

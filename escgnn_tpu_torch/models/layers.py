@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from escgnn_tpu_torch.ops.embed import embed_take
-from escgnn_tpu_torch.ops.segment import segment_sum
+from escgnn_tpu_torch.ops.segment import gather_rows, segment_sum
 
 
 def torch_linear_kernel_init(generator: torch.Generator, shape,
@@ -91,9 +91,9 @@ class TorchEmbed(nn.Embedding):
 class EmbedMM(TorchEmbed):
     """The JAX package's `EmbedMM` (flax param path `embedding`, N(0, 1)
     init), whose lookup there is a one-hot matmul so that its backward
-    runs on the MXU. Here it is `F.embedding`: the same values, and its
-    backward sums the output gradients per id, as the one-hot product's
-    transpose does."""
+    runs on the MXU. Here it is `embed_take`: the same values, and its
+    backward sums the output gradients per id in a fixed order, as the
+    one-hot product's transpose does."""
 
 
 class MaskedBatchNorm(nn.Module):
@@ -382,7 +382,7 @@ class GINEConv(nn.Module):
                 src = torch.cat(
                     [x, halo_exchange(x, boundary_send, halo_src, halo_axis)])
             dt = torch.promote_types(x.dtype, edge_emb.dtype)
-            msg = F.relu(src.index_select(0, senders.long()).to(dt)
+            msg = F.relu(gather_rows(src, senders).to(dt)
                          + edge_emb.to(dt))
             agg = segment_sum(msg, receivers, x.shape[0], edge_mask)
         if edge_shard_axis is not None:

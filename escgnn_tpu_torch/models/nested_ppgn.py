@@ -187,6 +187,7 @@ class NestedPPGN(nn.Module):
         dense_edges = edge_feat.new_zeros(S * M * M + 1, C_e).index_add(
             0, cell, edge_feat)[:-1].view(S, M, M, C_e)
         xm = torch.where(node_mask[:, None], x, 0.0)
+        # one real node per diagonal cell, padding to the trash slot: exact
         diag = x.new_zeros(S * M + 1, x.shape[-1]).index_add(
             0, node_slot, xm)[:-1].view(S, M, -1)
         eye = torch.eye(M, device=dev)
@@ -217,6 +218,7 @@ class NestedPPGN(nn.Module):
         seg_slot = _dense_index(sg, sloc, G, K)
         sm = torch.zeros(G * K + 1, dtype=torch.bool, device=dev).index_put(
             (seg_slot,), batch.segment_mask)[:-1].view(G, K)
+        # one real copy per diagonal cell, padding to the trash slot: exact
         diag_g = h.new_zeros(G * K + 1, cfg.emb_dim).index_add(
             0, seg_slot, h)[:-1].view(G, K, -1)
         eye_g = torch.eye(K, device=dev)

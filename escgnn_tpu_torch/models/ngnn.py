@@ -37,6 +37,7 @@ from escgnn_tpu_torch.models.layers import (
     _dense_local_aggregate_regions,
 )
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     pool_copy_blocks,
     segment_mean,
@@ -97,7 +98,7 @@ class NGNNGINConv(nn.Module):
                 x, batch.senders, batch.receivers, e, batch.edge_mask,
                 batch.nodes_per_seg)
         else:
-            msg = F.relu(x.index_select(0, batch.senders.long()) + e)
+            msg = F.relu(gather_rows(x, batch.senders) + e)
             agg = segment_sum(msg, batch.receivers, x.shape[0],
                               batch.edge_mask)
         # JAX promotes a bf16 x times the f32 eps to f32 (a 0-d tensor does
@@ -193,7 +194,7 @@ class NGNN(nn.Module):
         else:
             sub = pool_copy_blocks(h, batch, S, reduce="mean")
             if sub is None:
-                sub = segment_mean(h, masked_ids(batch.node_segment, nm), S,
+                sub = segment_mean(h, batch.node_segment, S,
                                    mask=nm)
         if cfg.node_level:
             g = sub  # one row per original node

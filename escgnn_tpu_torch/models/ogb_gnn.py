@@ -50,6 +50,7 @@ from escgnn_tpu_torch.models.layers import (
 from escgnn_tpu_torch.models.ngnn import copy_roots
 from escgnn_tpu_torch.models.pooling import Set2Set, global_sort_pool
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     pool_nodes_to_graphs,
     segment_max,
@@ -131,7 +132,7 @@ class GINConvEff(nn.Module):
                 x, batch.senders, batch.receivers, e.to(x.dtype),
                 batch.edge_mask, uniform_nodes)
         else:
-            msg = F.relu(x.index_select(0, batch.senders.long()) + e)
+            msg = F.relu(gather_rows(x, batch.senders) + e)
             agg = segment_sum(msg, batch.receivers, x.shape[0],
                               batch.edge_mask)
         # JAX promotes a bf16 x times the f32 eps to f32 (a 0-d tensor does
@@ -275,7 +276,7 @@ class GNNNodeEfficient(nn.Module):
                     # uniform blocks: the broadcast is a reshape
                     vn_nodes = vn[:, None, :].expand(G, n_u, d).reshape(N, d)
                 else:
-                    vn_nodes = vn.index_select(0, batch.node_graph.long())
+                    vn_nodes = gather_rows(vn, batch.node_graph)
                 if center_vn:
                     vn_nodes = torch.where(is_root[:, None], vn_nodes, 0.0)
                 hcur = hcur + vn_nodes

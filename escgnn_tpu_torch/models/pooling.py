@@ -19,6 +19,7 @@ from torch import nn
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.models.layers import TorchDense
 from escgnn_tpu_torch.ops.segment import (
+    gather_rows,
     masked_ids,
     segment_max,
     segment_mean,
@@ -94,7 +95,7 @@ class Set2Set(nn.Module):
         q_star = x.new_zeros(G, 2 * F)
         for _ in range(self.processing_steps):
             carry, q = self.lstm(carry, q_star)
-            e = (x * q.index_select(0, ids.long())).sum(-1)
+            e = (x * gather_rows(q, ids)).sum(-1)
             a = segment_softmax(e, ids, G, mask=mask)
             r = segment_sum(x * a[:, None], ids, G, mask=mask)
             q_star = torch.cat([q, r], dim=-1)

@@ -3,18 +3,37 @@
 Every op takes an explicit validity mask instead of relying on
 out-of-range ids being dropped, so padding policy lives in one place.
 The copy levels of a batch give their padding rows an out-of-range id,
-which JAX drops and `index_add_` refuses: `masked_ids` sends the masked
+which JAX drops and a gather refuses: `masked_ids` sends the masked
 rows to segment 0, where their neutral values change nothing.
 Max and min fill masked rows with the dtype's finite extreme before the
 reduce (`scatter_reduce` with `include_self=False`, whose gradient splits
 a tie evenly, as JAX's does) and give `empty_value` for empty segments.
+
+Sums add in a fixed order, so one input gives one result on every run,
+as the JAX package's do. `segment_sum` sorts the ids stably into a
+`SortedIds` view and adds each segment's run with the sorted segment sum
+(K1, `ops/expand_cuda.py`) in f32, cast back to the values' dtype; its
+backward is a gather. `gather_rows` is its adjoint: a row gather whose
+backward is K1 over the ids' view. `index_add_` adds with atomics on the
+card, in no fixed order, and it is also `index_select`'s backward. On
+the CPU the same routing runs, with K1's plain version as the final sum.
+
+Inside a `sorted_views()` scope (each train, eval or refresh step opens
+one) a view is built once per ids tensor, mask and segment count, and
+dies with the scope: a view never outlives the step that built it, so a
+captured step sorts inside its graph and each replay sorts the batch its
+buffers then hold. Outside a scope every call sorts.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional
 
 import torch
+
+from escgnn_tpu_torch.ops import expand_cuda
 
 
 def _apply_mask(values, mask: Optional[torch.Tensor], fill=0.0):
@@ -27,32 +46,151 @@ def _apply_mask(values, mask: Optional[torch.Tensor], fill=0.0):
 
 def masked_ids(segment_ids, mask: torch.Tensor):
     """`segment_ids` with the rows `mask` drops sent to segment 0, so an
-    out-of-range padding id never reaches a scatter or a gather."""
+    out-of-range padding id never reaches a sum or a gather."""
     return torch.where(mask, segment_ids, torch.zeros_like(segment_ids))
 
 
+@dataclasses.dataclass(frozen=True)
+class SortedIds:
+    """A stable sort of an id array: `ids` (E,) int32 in range (the rows a
+    mask drops sent to 0), `perm` (E,) int32 with `ids[perm]` =
+    `ids_sorted` non-decreasing, and the segment count."""
+    ids: torch.Tensor
+    perm: torch.Tensor
+    ids_sorted: torch.Tensor
+    num_segments: int
+
+
+# the open scopes' caches, innermost last
+_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def sorted_views():
+    """A scope, one step, in which `sorted_ids` builds each view once."""
+    _SCOPES.append({})
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
+
+
+def _version(t) -> int:
+    return -1 if t is None else t._version
+
+
+def sorted_ids(segment_ids, num_segments: int,
+               mask: Optional[torch.Tensor] = None) -> SortedIds:
+    """The sorted view of `segment_ids` (any integer dtype) over
+    `num_segments` segments, the rows `mask` drops sent to segment 0. In
+    a `sorted_views()` scope the view of one (ids, mask, count) is built
+    once, keyed on the tensors and their versions: an in-place refill of
+    either builds a new one."""
+    cache = _SCOPES[-1] if _SCOPES else None
+    key = (id(segment_ids), id(mask), int(num_segments))
+    versions = (_version(segment_ids), _version(mask))
+    if cache is not None:
+        hit = cache.get(key)
+        # the entry holds its tensors alive, so their ids name them alone
+        if hit is not None and hit[0] == versions:
+            return hit[2]
+    ids = segment_ids if mask is None else masked_ids(segment_ids, mask)
+    ids = ids.to(torch.int32)
+    ids_sorted, perm = torch.sort(ids, stable=True)
+    view = SortedIds(ids, perm.to(torch.int32), ids_sorted,
+                     int(num_segments))
+    if cache is not None:
+        cache[key] = (versions, (segment_ids, mask), view)
+    return view
+
+
+def sum_by_view(values, view: SortedIds):
+    """sum_i values[i] into rows view.ids[i] by K1 -> (num_segments, ...)
+    in the values' dtype. Values of any rank are summed as (E, -1) rows;
+    K1 adds f32 or bf16 rows in f32 (other float types go in as f32)."""
+    E = values.shape[0]
+    shape = (view.num_segments,) + tuple(values.shape[1:])
+    if E == 0:
+        return values.new_zeros(shape)
+    rows = values.reshape(E, -1)
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        rows = rows.to(torch.float32)
+    out = expand_cuda.sorted_segment_sum(expand_cuda.as_rows(rows),
+                                         view.perm, view.ids_sorted,
+                                         view.num_segments)
+    return out.reshape(shape).to(values.dtype)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """out[s] = sum_{i: ids[i] = s} values[i] by K1; backward the gather
+    dValues = dOut[ids]."""
+
+    @staticmethod
+    def forward(ctx, values, view: SortedIds):
+        ctx.view = view
+        return sum_by_view(values, view)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _GatherRows.apply(d_out, ctx.view), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """y = x[ids]; backward dX = dY summed by ids (K1)."""
+
+    @staticmethod
+    def forward(ctx, x, view: SortedIds):
+        ctx.view = view
+        return x.index_select(0, view.ids)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        return _SegmentSum.apply(d_y, ctx.view), None
+
+
+def gather_rows(x, ids, view: Optional[SortedIds] = None):
+    """`x.index_select(0, ids)` whose backward adds the rows' gradients
+    in a fixed order: K1 over `view`, else the sorted view of `ids` over
+    x's rows. Without a gradient to carry, a plain `index_select`."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        idx = ids if view is None else view.ids
+        if idx.dtype not in (torch.int32, torch.int64):
+            idx = idx.long()
+        return x.index_select(0, idx)
+    if view is None:
+        view = sorted_ids(ids, x.shape[0])
+    return _GatherRows.apply(x, view)
+
+
 def segment_sum(values, segment_ids, num_segments: int,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                view: Optional[SortedIds] = None):
     """sum_i values[i] into rows segment_ids[i]; masked-out rows
-    contribute 0."""
+    contribute 0. Added in a fixed order by K1, in f32, and cast back to
+    the values' dtype; `view` is the ids' (and mask's) view if given."""
     values = _apply_mask(values, mask)
-    out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
-    return out.index_add_(0, segment_ids.long(), values)
+    if view is None:
+        view = sorted_ids(segment_ids, num_segments, mask)
+    return _SegmentSum.apply(values, view)
 
 
 def segment_mean(values, segment_ids, num_segments: int,
                  mask: Optional[torch.Tensor] = None):
     """Masked segment mean; empty segments yield 0."""
-    s = segment_sum(values, segment_ids, num_segments, mask)
+    view = sorted_ids(segment_ids, num_segments, mask)
+    s = segment_sum(values, segment_ids, num_segments, mask, view=view)
     ones = (torch.ones(values.shape[0], dtype=s.dtype, device=s.device)
             if mask is None else mask.to(s.dtype))
-    cnt = segment_sum(ones, segment_ids, num_segments).clamp_min(1.0)
+    cnt = segment_sum(ones, segment_ids, num_segments,
+                      view=view).clamp_min(1.0)
     return s / cnt.reshape(cnt.shape + (1,) * (s.dim() - 1))
 
 
 def _segment_extreme(values, segment_ids, num_segments, mask, reduce,
                      fill, empty_value):
     values = _apply_mask(values, mask, fill)
+    if mask is not None:
+        segment_ids = masked_ids(segment_ids, mask)
     idx = segment_ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
     out = torch.full((num_segments,) + tuple(values.shape[1:]), fill,
                      dtype=values.dtype, device=values.device)
@@ -87,11 +225,13 @@ def segment_softmax(logits, segment_ids, num_segments: int,
     overflow to inf before the mask and reach the gradient as inf * 0."""
     neg = torch.finfo(logits.dtype).min
     filled = _apply_mask(logits, mask, neg)
-    mx = segment_max(filled, segment_ids, num_segments)
-    ex = torch.exp(torch.clamp_min(filled - mx[segment_ids.long()], neg))
+    view = sorted_ids(segment_ids, num_segments, mask)
+    mx = segment_max(filled, view.ids, num_segments)
+    ex = torch.exp(torch.clamp_min(filled - gather_rows(mx, None, view),
+                                   neg))
     ex = _apply_mask(ex, mask)
-    denom = segment_sum(ex, segment_ids, num_segments).clamp_min(1e-16)
-    return ex / denom[segment_ids.long()]
+    denom = segment_sum(ex, None, num_segments, view=view).clamp_min(1e-16)
+    return ex / gather_rows(denom, None, view)
 
 
 def pool_nodes_to_graphs(values, batch, reduce: str = "sum"):
@@ -116,12 +256,10 @@ def pool_nodes_to_graphs(values, batch, reduce: str = "sum"):
             return (s / cnt.reshape((G,) + (1,) * (s.dim() - 1))).to(
                 values.dtype)
         raise ValueError(reduce)
-    s = segment_sum(values, batch.node_graph, G, mask)
     if reduce == "sum":
-        return s
+        return segment_sum(values, batch.node_graph, G, mask)
     if reduce == "mean":
-        cnt = segment_sum(mask.to(s.dtype), batch.node_graph, G).clamp_min(1.0)
-        return s / cnt.reshape((G,) + (1,) * (s.dim() - 1))
+        return segment_mean(values, batch.node_graph, G, mask)
     raise ValueError(reduce)
 
 

@@ -14,7 +14,8 @@ weighted and summed into their edges; its backward sums them once more
 into the table by bucket id (dTable) and takes a gathered dot per entry
 (dCnt), where JAX scans 128-entry blocks of one-hot matmuls, a TPU
 workaround for scatters. Both sums sort the entries by their target row
-on the device and add the runs with the sorted segment sum (K1), which
+on the device (`ops/segment.py`'s sorted views) and add the runs with the
+sorted segment sum (K1), which
 adds every row's terms in a fixed order, so the flat path gives the same
 sums on every run: `index_add_` adds with atomics in no fixed order, and
 on dTable, where hundreds of entries share a bucket and largely cancel,
@@ -42,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from escgnn_tpu_torch.ops import expand_cuda, zemb_cuda, zemb_gather
+from escgnn_tpu_torch.ops import segment, zemb_cuda, zemb_gather
 from escgnn_tpu_torch.ops.embed import embed_take
 from escgnn_tpu_torch.ops.zemb_cuda import count_matrix as _count_matrix
 
@@ -127,33 +128,30 @@ def zemb_weighted_gather(table, enc_idx, enc_cnt):
                              _IMPL == "pallas")
 
 
-def _sum_by(values, ids, num_rows: int):
-    """sum_k values[k] (K, H) f32 into row ids[k] -> (num_rows, H) f32, in
-    a fixed order: the ids stable-sorted, then K1 over their runs."""
-    ids_sorted, perm = torch.sort(ids, stable=True)
-    return expand_cuda.sorted_segment_sum(
-        values, perm.to(torch.int32), ids_sorted.to(torch.int32), num_rows)
-
-
 class _ZembFlat(torch.autograd.Function):
     """Counterpart of `_zemb_flat_core`: z[e] = sum_{k: edge_k = e}
     cnt_k * table[idx_k]; dTable[z] = sum_{k: idx_k = z} cnt_k *
-    dZ[edge_k] and dCnt[k] = table[idx_k] . dZ[edge_k]."""
+    dZ[edge_k] and dCnt[k] = table[idx_k] . dZ[edge_k]. `edge` and `idx`
+    are the entries' sorted views."""
 
     @staticmethod
-    def forward(ctx, table, idx, cnt, edge, num_edges: int):
-        ctx.save_for_backward(table, idx, cnt, edge)
-        rows = table.index_select(0, idx).to(torch.float32) * cnt[:, None]
-        return _sum_by(rows, edge, num_edges)
+    def forward(ctx, table, cnt, edge, idx):
+        ctx.save_for_backward(table, cnt)
+        ctx.views = (edge, idx)
+        rows = (table.index_select(0, idx.ids).to(torch.float32)
+                * cnt[:, None])
+        return segment.sum_by_view(rows, edge)
 
     @staticmethod
     def backward(ctx, dZ):
-        table, idx, cnt, edge = ctx.saved_tensors
-        dZ_k = dZ.to(torch.float32).index_select(0, edge)
-        dT = _sum_by(_bwd_operand(cnt)[:, None] * _bwd_operand(dZ_k), idx,
-                     table.shape[0])
-        dCnt = (table.index_select(0, idx).to(torch.float32) * dZ_k).sum(-1)
-        return dT.to(table.dtype), None, dCnt, None, None
+        table, cnt = ctx.saved_tensors
+        edge, idx = ctx.views
+        dZ_k = dZ.to(torch.float32).index_select(0, edge.ids)
+        dT = segment.sum_by_view(
+            _bwd_operand(cnt)[:, None] * _bwd_operand(dZ_k), idx)
+        dCnt = (table.index_select(0, idx.ids).to(torch.float32)
+                * dZ_k).sum(-1)
+        return dT.to(table.dtype), dCnt, None, None
 
 
 def zemb_weighted_flat(table, flat_idx, flat_cnt, flat_edge,
@@ -161,9 +159,9 @@ def zemb_weighted_flat(table, flat_idx, flat_cnt, flat_edge,
     """Per-edge weighted sum of table rows from flat COO entries ->
     (num_edges, H) f32. Padding entries have cnt == 0. Accepts the int16
     wire format from the batcher; the counts are differentiable."""
-    return _ZembFlat.apply(table, flat_idx.long(),
-                           flat_cnt.to(torch.float32), flat_edge.long(),
-                           num_edges)
+    return _ZembFlat.apply(table, flat_cnt.to(torch.float32),
+                           segment.sorted_ids(flat_edge, num_edges),
+                           segment.sorted_ids(flat_idx, table.shape[0]))
 
 
 def zemb_unique_rows(table, batch):
@@ -180,33 +178,15 @@ def zemb_unique_rows(table, batch):
     return zemb_weighted_gather(table, batch.enc_idx, batch.enc_cnt)
 
 
-class _ExpandRows(torch.autograd.Function):
-    """z = u[edge_row]; backward dU = segsum(dZ[perm], rows_sorted) (K1).
-    The flagship's dZ is a column slice of the (E, H + 32) gradient of
-    [z_emb | edge-type embedding]: K1 reads it in place."""
-
-    @staticmethod
-    def forward(ctx, u, edge_row, perm, rows_sorted):
-        ctx.save_for_backward(perm, rows_sorted)
-        ctx.num_rows = u.shape[0]
-        return u.index_select(0, edge_row.long())
-
-    @staticmethod
-    def backward(ctx, dZ):
-        perm, rows_sorted = ctx.saved_tensors
-        dU = expand_cuda.sorted_segment_sum(
-            expand_cuda.as_rows(dZ), perm, rows_sorted, ctx.num_rows
-        )
-        return dU, None, None, None
-
-
 def expand_rows(u, batch):
     """Expand unique-row values (R, H) to edges (E, H) via
-    `batch.enc_edge_row`; the backward is the sorted-segment-sum over the
-    batch's sorted-CSR view (K1 on CUDA tensors)."""
-    return _ExpandRows.apply(
-        u, batch.enc_edge_row, batch.enc_edge_perm, batch.enc_row_sorted
-    )
+    `batch.enc_edge_row`: a `gather_rows` whose backward is K1 over the
+    batch's host-sorted view (`enc_edge_perm` / `enc_row_sorted`). The
+    flagship's dZ is a column slice of the (E, H + 32) gradient of
+    [z_emb | edge-type embedding]: K1 reads it in place."""
+    view = segment.SortedIds(batch.enc_edge_row, batch.enc_edge_perm,
+                             batch.enc_row_sorted, u.shape[0])
+    return segment.gather_rows(u, None, view)
 
 
 def zemb_from_batch(table, batch):

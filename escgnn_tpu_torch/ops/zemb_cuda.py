@@ -36,6 +36,7 @@ def count_matrix(enc_idx, enc_cnt, num_buckets: int):
     cnt = torch.where(ok, enc_cnt.to(torch.float32), 0.0)
     C = torch.zeros(idx.shape[0], num_buckets, dtype=torch.float32,
                     device=idx.device)
+    # an atomic sum may stay: small-integer counts, exact in any order
     return C.scatter_add_(1, torch.where(ok, idx, 0), cnt)
 
 

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.models.layers import set_use_running_average
+from escgnn_tpu_torch.ops.segment import sorted_views
 from escgnn_tpu_torch.parallel.mesh import (
     axis_group,
     axis_index,
@@ -108,8 +109,9 @@ def make_sharded_step(model: torch.nn.Module, opt, share_fn, grad_axis,
         model.train()
         set_use_running_average(model, False)
         opt.zero_grad(set_to_none=True)
-        share = share_fn(model(batch), batch)
-        share.backward()
+        with sorted_views():
+            share = share_fn(model(batch), batch)
+            share.backward()
         allreduce_grads_(model, grad_axis)
         opt.step()
         if bn_axis is not None:

@@ -101,6 +101,7 @@ def _local_view(edge_row, edge_mask, num_rows: int, like_perm, like_weight):
     rows = edge_row.long()
     weight = torch.zeros(rows.shape[:-1] + (num_rows,),
                          dtype=torch.float32, device=rows.device)
+    # an atomic sum may stay: 0/1 mask counts, exact in f32 in any order
     weight.scatter_add_(-1, rows, edge_mask.to(torch.float32))
     perm = torch.argsort(rows, dim=-1, stable=True)
     rows_sorted = torch.gather(rows, -1, perm)

@@ -36,6 +36,7 @@ import torch
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.ops.segment import gather_rows, segment_sum, sorted_views
 from escgnn_tpu_torch.parallel.data_parallel import (
     check_backend,
     make_sharded_step,
@@ -163,10 +164,9 @@ def halo_exchange(x_local, boundary_send, halo_src, axis):
     """The remote sender rows of this rank: publish its boundary rows,
     all_gather the (D, B_max, F) block over `axis`, take this rank's halo
     rows from it. Returns (H_max, F)."""
-    boundary = x_local.index_select(0, boundary_send.long())
+    boundary = gather_rows(x_local, boundary_send)
     block = all_gather(boundary, axis)
-    return block.reshape(-1, x_local.shape[-1]).index_select(
-        0, halo_src.long())
+    return gather_rows(block.reshape(-1, x_local.shape[-1]), halo_src)
 
 
 def shard_plan(plan: HaloPlan, mesh, axis: str = "model",
@@ -190,15 +190,12 @@ def halo_gine_aggregate(x_local, edge_emb_local, plan_dev: dict, axis,
     halo = halo_exchange(x_local, plan_dev["boundary_send"],
                          plan_dev["halo_src"], axis)
     x_ext = torch.cat([x_local, halo], dim=0)
-    msg = torch.relu(x_ext.index_select(0, plan_dev["senders"].long())
+    msg = torch.relu(gather_rows(x_ext, plan_dev["senders"])
                      + edge_emb_local)
     mask = plan_dev["edge_mask"]
     if edge_mask_local is not None:
         mask = mask & edge_mask_local
-    msg = torch.where(mask[:, None], msg, torch.zeros((), dtype=msg.dtype,
-                                                      device=msg.device))
-    return msg.new_zeros(x_local.shape).index_add_(
-        0, plan_dev["receivers"].long(), msg)
+    return segment_sum(msg, plan_dev["receivers"], x_local.shape[0], mask)
 
 
 def make_halo_gine_forward(mesh, axis: str = "model"):
@@ -233,13 +230,14 @@ def make_halo_train_step(mesh, num_layers: int, lr: float = 1e-2,
         p = {k: params[k].detach().requires_grad_(True) for k in names}
         cnt = psum(node_mask.sum().to(torch.float32), axis).clamp_min(1.0)
         h = x
-        for i in range(num_layers):
-            agg = halo_gine_aggregate(h, edge_emb, plan_dev, axis)
-            h = torch.relu((h + agg) @ p[f"w_{i}"] + p[f"b_{i}"])
-        err = torch.where(node_mask[:, None], h - y,
-                          torch.zeros((), dtype=h.dtype, device=h.device))
-        loss_local = (err * err).sum() / cnt
-        grads = torch.autograd.grad(loss_local, [p[k] for k in names])
+        with sorted_views():
+            for i in range(num_layers):
+                agg = halo_gine_aggregate(h, edge_emb, plan_dev, axis)
+                h = torch.relu((h + agg) @ p[f"w_{i}"] + p[f"b_{i}"])
+            err = torch.where(node_mask[:, None], h - y,
+                              torch.zeros((), dtype=h.dtype, device=h.device))
+            loss_local = (err * err).sum() / cnt
+            grads = torch.autograd.grad(loss_local, [p[k] for k in names])
         new = {k: (p[k] - lr * psum(g, axis)).detach()
                for k, g in zip(names, grads)}
         return new, psum(loss_local.detach(), axis)

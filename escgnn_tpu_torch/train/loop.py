@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.data.prefetch import pool_entry, pool_size
 from escgnn_tpu_torch.models.layers import bn_statistics, set_use_running_average
+from escgnn_tpu_torch.ops.segment import sorted_views
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -224,12 +225,14 @@ def train_step(
     """One step: forward in train mode with BatchNorm on batch statistics
     (the running statistics are updated), backward, optimizer update.
     Returns the loss (computed before the update) as a detached tensor,
-    without synchronizing."""
+    without synchronizing. The step's sums share one `sorted_views()`
+    scope."""
     model.train()
     set_use_running_average(model, False)
     opt.zero_grad(set_to_none=True)
-    loss = loss_fn(model(batch), batch)
-    loss.backward()
+    with sorted_views():
+        loss = loss_fn(model(batch), batch)
+        loss.backward()
     opt.step()
     return loss.detach()
 
@@ -303,7 +306,7 @@ def make_bn_refresh_step(model: torch.nn.Module):
 
     @torch.no_grad()
     def refresh(base_stats: dict, batch: GraphBatch) -> dict:
-        with _batch_statistics(model):
+        with _batch_statistics(model), sorted_views():
             load_bn_stats(model, base_stats)
             model(batch)
             return bn_stats(model)
@@ -368,7 +371,7 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
     if bn_mode not in _BN_MODES:
         raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
     with (_batch_statistics(model) if bn_mode == "batch"
-          else running_statistics(model)):
+          else running_statistics(model)), sorted_views():
         out = model(batch)
     if segment_level:
         mask, y = batch.segment_mask, batch.extras["y_seg"]
@@ -404,7 +407,7 @@ def make_accuracy_step(model: torch.nn.Module):
 
     @torch.no_grad()
     def acc_step(batch: GraphBatch):
-        with running_statistics(model):
+        with running_statistics(model), sorted_views():
             pred = model(batch).argmax(dim=-1)
         correct = (pred == batch.y.reshape(-1).long()) & batch.graph_mask
         return correct.sum(), batch.graph_mask.sum()
@@ -419,7 +422,7 @@ def make_pergraph_correct_step(model: torch.nn.Module):
 
     @torch.no_grad()
     def step(batch: GraphBatch):
-        with running_statistics(model):
+        with running_statistics(model), sorted_views():
             pred = model(batch).argmax(dim=-1)
         return pred == batch.y.reshape(-1).long(), batch.graph_mask
 
@@ -438,8 +441,11 @@ def make_pool_logits_step(model: torch.nn.Module, node_level: bool = False,
 
     @torch.no_grad()
     def logits_pool(stacked: GraphBatch):
+        outs = []
         with running_statistics(model):
-            outs = [model(b) for b in _pool_batches(stacked, decode)]
+            for b in _pool_batches(stacked, decode):
+                with sorted_views():
+                    outs.append(model(b))
         if decode is not None:
             # y and the mask may be stored compressed too
             stacked = decode(GraphBatch(y=stacked.y,

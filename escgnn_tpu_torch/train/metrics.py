@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from escgnn_tpu_torch.data.container import GraphBatch
+from escgnn_tpu_torch.ops.segment import gather_rows
 
 
 def optax_sigmoid_bce(logits: torch.Tensor,
@@ -131,8 +132,8 @@ def link_pair_loss(node_emb: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     node slot and drop out through `pair_mask`."""
     ex = batch.extras
     pi = ex["pair_index"].long()
-    v1 = node_emb.index_select(0, pi[0])
-    v2 = node_emb.index_select(0, pi[1])
+    v1 = gather_rows(node_emb, pi[0])
+    v2 = gather_rows(node_emb, pi[1])
     logits = (v1 * v2).sum(-1)
     mask = ex["pair_mask"]
     per = optax_sigmoid_bce(logits, ex["pair_label"].to(torch.float32))

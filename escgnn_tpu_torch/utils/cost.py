@@ -86,7 +86,6 @@ from torch.utils._python_dispatch import (
 
 from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.data.prefetch import pool_entry
-from escgnn_tpu_torch.train.loop import train_step
 
 
 @dataclasses.dataclass
@@ -782,6 +781,9 @@ def count_cost(model, opt, batch: GraphBatch, loss_fn) -> tuple:
     optimizer update) on a deep copy of `model` and `opt`, counted by
     `CostMode`: the counterpart of `bench.py`'s `step_cost`. `model` and
     `opt` are left as they were."""
+    # the train loop's models sum through kernels that import this module
+    from escgnn_tpu_torch.train.loop import train_step
+
     m, o = copy.deepcopy((model, opt))
     with CostMode() as mode:
         loss = train_step(m, o, batch, loss_fn)

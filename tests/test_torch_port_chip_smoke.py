@@ -168,11 +168,25 @@ def test_zoo_k123_batch_is_the_bench_twins():
 
 def test_bench_phase_names_every_line():
     """`[bench]` prints one `[bench_<line>]` per metric, and K1's nodes
-    are expected only on the dedup lines."""
+    expected per captured step are the K1 calls `CostMode` counts in one
+    eager step of the line (at BENCH_SMOKE counts on the CPU): every sum
+    and the backward of every row gather and embedding lookup; none on
+    PPGN_eff."""
     from escgnn_tpu_torch import bench
+    from escgnn_tpu_torch.train.loop import adam_with_plateau
+    from escgnn_tpu_torch.utils.cost import count_cost
 
     shorts = [chip_smoke._bench_short(m) for m in bench.METRICS]
     assert len(set(shorts)) == len(bench.METRICS)
     assert shorts[-1] == "flagship"
-    assert set(chip_smoke.BENCH_K1_NODES) == {"flagship", "ogb", "gps",
-                                              "gps_pep"}
+    gsets = bench.make_graph_sets(smoke=True, num_workers=0)
+    for metric, short in zip(bench.METRICS, shorts):
+        line = bench.bench_line(metric, gsets, smoke=True)
+        model = line.model("cpu")
+        cost, _ = count_cost(model, adam_with_plateau(model.parameters(),
+                                                      bench.LR),
+                             line.host_batch(), line.loss_fn)
+        k1 = cost.by_op.get("sorted_segment_sum")
+        assert chip_smoke.BENCH_K1_NODES.get(short, 0) == (
+            k1.calls if k1 else 0), short
+    assert "ppgn" not in chip_smoke.BENCH_K1_NODES

@@ -574,8 +574,9 @@ def test_kernel_charges_once_as_its_plain_version(kernel):
 
 def test_kernel_charges_in_the_autograd_paths():
     """The forward of K4's autograd function and the dedup expansion's
-    backward (K1) each charge one call; their other ops are counted."""
-    from escgnn_tpu_torch.ops.zemb import _ExpandRows
+    backward (K1, a `gather_rows` over the batch's sorted view) each
+    charge one call; their other ops are counted."""
+    from escgnn_tpu_torch.ops.segment import SortedIds, gather_rows
 
     (x,), _ = _k4_inputs(torch.float32)
     x.requires_grad_(True)
@@ -584,8 +585,8 @@ def test_kernel_charges_in_the_autograd_paths():
     (dZ, perm, rows, R), _ = _k1_inputs(torch.float32, False)
     u = torch.randn(R, dZ.shape[1], requires_grad=True)
     edge_row = rows[torch.argsort(perm)]
-    got = port_cost(lambda: _ExpandRows.apply(u, edge_row, perm, rows)
-                    .sum().backward())
+    view = SortedIds(edge_row, perm, rows, R)
+    got = port_cost(lambda: gather_rows(u, None, view).sum().backward())
     assert got.by_op["sorted_segment_sum"].calls == 1
     assert got.by_op["aten.index_select"].calls == 1
 
