@@ -125,7 +125,13 @@ against its plain PyTorch version on the card, then drives these paths:
     `tools/determinism_probe.py`: two eager steps from one state and two
     graphed epochs from one state bit-equal on the ZINC twin's, packed,
     flat, `run_tu`'s and seven bench lines' steps; K1 against its f64
-    sum at the largest sums they make).
+    sum at every distinct sum they make, one `[k1_call]` line each,
+    graph-timed beside `zeros + index_add_`, and per step K1's summed ms
+    against `index_add_`'s);
+  * slice 17: K1 deals the row ends and positions of the merge path over
+    the grid, so `[k1]` adds an interior gap of 4960 rows, a short sum
+    and masked positions (sorted last under id R, dropped unread) to its
+    cases.
 
 Every phase prints one line; any failed check raises, so the script exits
 non-zero and prints no result. A kernel's launches in graphed epochs are
@@ -383,7 +389,11 @@ def _k1_cases(batch, dev, gen):
     columns); bf16 contiguous, at H 100 (single columns) and as the first
     100 columns of a 104-wide tensor (8-wide units and a 4-column tail);
     ragged ids with gaps and trailing rows; a run of 30% of the edges over
-    many blocks, with leading, gap and trailing rows."""
+    many blocks, with leading, gap and trailing rows; the sums the sorted
+    views brought: an interior gap of 4960 unnamed rows at H 64 (k123's),
+    a short sum (E 1024 into R 928 at H 64, GPS ZINC's), and a third of
+    the positions masked (sorted last under id R, never read) beside a
+    gap and a long run."""
     perm, rows = batch.enc_edge_perm, batch.enc_row_sorted
     E, R, H = perm.shape[0], batch.enc_idx.shape[0], 256
     wide = torch.randn(E, H + 32, device=dev, generator=gen)
@@ -398,27 +408,65 @@ def _k1_cases(batch, dev, gen):
     def perm_of(n):
         return torch.randperm(n, device=dev, generator=gen).to(torch.int32)
 
+    def sorted_ids(ids):
+        return torch.sort(ids).values.to(torch.int32)
+
     # ragged: 1000 edges on ids 0..248 with gaps, 300 rows, H 96
     ids = torch.randint(0, 125, (1000,), device=dev, generator=gen) * 2
     cases.append(("ragged", torch.randn(1000, 96, device=dev, generator=gen),
-                  perm_of(1000), torch.sort(ids).values.to(torch.int32), 300,
-                  True))
+                  perm_of(1000), sorted_ids(ids), 300, True))
     # long run: 6000 of 20000 edges on row 1000, the rest on even ids in
     # [6, 2500); 3000 rows
     n, long_n = 20000, 6000
     ids = torch.randint(3, 1250, (n,), device=dev, generator=gen) * 2
     ids[:long_n] = 1000
     cases.append(("long_run", torch.randn(n, H, device=dev, generator=gen),
-                  perm_of(n), torch.sort(ids).values.to(torch.int32), 3000,
-                  True))
+                  perm_of(n), sorted_ids(ids), 3000, True))
+    # an interior gap: 20000 positions on rows [0, 3528) and [8488, 12016),
+    # rows 3528..8487 unnamed (k123's 4960-row gap), H 64
+    n, lo_rows = 20000, 3528
+    ids = torch.randint(0, 2 * lo_rows, (n,), device=dev, generator=gen)
+    ids = torch.where(ids < lo_rows, ids, ids + 4960)
+    cases.append(("gap_4960", torch.randn(n, 64, device=dev, generator=gen),
+                  perm_of(n), sorted_ids(ids), 12016, True))
+    # short: 1024 positions on 928 rows, runs of a few (GPS ZINC's)
+    ids = torch.randint(0, 928, (1024,), device=dev, generator=gen)
+    cases.append(("short_1024", torch.randn(1024, 64, device=dev,
+                                            generator=gen),
+                  perm_of(1024), sorted_ids(ids), 928, True))
+    # masked: 45408 positions into 12016 rows, 20494 of them masked (id
+    # R), a 4960-row gap and a run of 3000 on row 100, H 64
+    n, masked = 45408, 20494
+    ids = torch.randint(0, 2 * lo_rows, (n,), device=dev, generator=gen)
+    ids = torch.where(ids < lo_rows, ids, ids + 4960)
+    ids[:3000] = 100
+    ids[-masked:] = 12016
+    cases.append(("masked_k123", torch.randn(n, 64, device=dev,
+                                             generator=gen),
+                  perm_of(n), sorted_ids(ids), 12016, True))
     return cases
+
+
+def _f64_sum(dZ, perm, rows, R):
+    """The segment sum in f64, positions outside [0, R) dropped."""
+    keep = torch.where((rows >= 0) & (rows < R), rows.long(), R)
+    out = torch.zeros(R + 1, dZ.shape[1], dtype=torch.float64,
+                      device=dZ.device)
+    out.index_add_(0, keep, dZ.double().index_select(0, perm.long()))
+    return out[:R]
+
+
+def _unnamed_rows(rows, R):
+    """(R,) bool: the rows no position names."""
+    keep = rows[(rows >= 0) & (rows < R)].long()
+    return torch.bincount(keep, minlength=R)[:R] == 0
 
 
 def check_k1(batch, dev):
     """K1 on every case of `_k1_cases`: close to its reference, two calls
     bit-equal, every row no id names exactly 0; the step's strided layout
     bit-equal to the same values contiguous; one launch per call; layouts
-    and spans it does not take refused. Timed on the step's layout (the
+    and shares it does not take refused. Timed on the step's layout (the
     main path's) beside the contiguous one."""
     from escgnn_tpu_torch import _build
     from escgnn_tpu_torch.ops import expand_cuda, smem_plan
@@ -433,9 +481,7 @@ def check_k1(batch, dev):
     for name, dZ, perm, rows, R, exact in _k1_cases(batch, dev, gen):
         got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
         if exact:
-            want = torch.zeros(R, dZ.shape[1], dtype=torch.float64,
-                               device=dev).index_add_(
-                0, rows.long(), dZ.double().index_select(0, perm.long()))
+            want = _f64_sum(dZ, perm, rows, R)
         else:
             want = expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R)
         torch.cuda.synchronize()
@@ -446,14 +492,18 @@ def check_k1(batch, dev):
                                                                rows, R)):
             raise AssertionError(f"K1 {name}: not deterministic from run to "
                                  f"run")
-        unnamed = torch.bincount(rows.long(), minlength=R)[:R] == 0
+        unnamed = _unnamed_rows(rows, R)
         if unnamed.any() and got[unnamed].abs().max().item() != 0:
             raise AssertionError(f"K1 {name}: a row no id names is not 0")
         if name == "long_run":
-            # the blocks the long run's sorted positions span
+            # the blocks the long run's merge-path items span: its
+            # positions come after the 1000 row ends before row 1000
             lo, hi = int((rows < 1000).sum()), int((rows <= 1000).sum())
-            span = expand_cuda.segsum_plan(len(rows), dZ.shape[1], sms).span
-            long_blocks = (hi - 1) // span - lo // span + 1
+            share = expand_cuda.segsum_plan(len(rows), dZ.shape[1], R,
+                                            sms).share
+            w = expand_cuda.POS_WEIGHT
+            long_blocks = ((1000 + w * hi - 1) // share
+                           - (1000 + w * lo) // share + 1)
             if long_blocks < 10:
                 raise AssertionError(f"K1 long_run spans {long_blocks} blocks")
         results[name] = (got, int(unnamed.sum().item()))
@@ -488,26 +538,30 @@ def check_k1(batch, dev):
     # the strided rows are the same bytes
     nbytes = E * H * 4 + 2 * E * 4 + R * H * 4
     bound_ms, bound_by = _bound(nbytes, E * H)
-    plan = expand_cuda.segsum_plan(E, H, sms)
+    plan = expand_cuda.segsum_plan(E, H, R, sms)
 
-    # refused, each for its own reason: by the C launcher a span outside
-    # [1, 256] and a row stride under H (cudaErrorInvalidValue), by the
-    # wrapper a column stride of 2
+    # refused, each for its own reason: by the C launcher a share outside
+    # [POS_WEIGHT, MAX_SHARE] and a row stride under H
+    # (cudaErrorInvalidValue), by the wrapper a column stride of 2
     out_r = torch.empty(R, H, device=dev)
     part = torch.empty(plan.partial_floats, device=dev)
 
-    def launcher(span, ld):
+    def launcher(share, ld):
         rc = _build.load("expand_segsum").expand_segsum_f32(
             dZ.data_ptr(), ld, perm.data_ptr(), rows_sorted.data_ptr(), E, H,
-            R, span, out_r.data_ptr(), part.data_ptr(),
+            R, share, out_r.data_ptr(), part.data_ptr(),
             expand_cuda._counters(dev, R).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "expand_segsum")
 
+    too_big = expand_cuda.MAX_SHARE + 1
     refusals = {
-        "span_0": (lambda: launcher(0, dZ.stride(0)), "CUDA error 1"),
-        "span_257": (lambda: launcher(257, dZ.stride(0)), "CUDA error 1"),
-        "row_stride_under_H": (lambda: launcher(plan.span, H - 1),
+        f"share_{expand_cuda.POS_WEIGHT - 1}": (
+            lambda: launcher(expand_cuda.POS_WEIGHT - 1, dZ.stride(0)),
+            "CUDA error 1"),
+        f"share_{too_big}": (lambda: launcher(too_big, dZ.stride(0)),
+                             "CUDA error 1"),
+        "row_stride_under_H": (lambda: launcher(plan.share, H - 1),
                                "CUDA error 1"),
         "column_stride_2": (lambda: expand_cuda.sorted_segment_sum(
             wide[:, ::2], perm, rows_sorted, R), "column stride"),
@@ -521,7 +575,7 @@ def check_k1(batch, dev):
                                      f"{e}") from e
         else:
             raise AssertionError(f"K1 accepted {what}")
-    _log("k1", shapes=f"E={E},R={R},H={H}", layout="ld288", span=plan.span,
+    _log("k1", shapes=f"E={E},R={R},H={H}", layout="ld288", share=plan.share,
          grid=plan.grid, long_run_blocks=long_blocks,
          cases=",".join(results), zero_rows=",".join(
              f"{k}:{v[1]}" for k, v in results.items()),
@@ -2565,10 +2619,10 @@ def check_k1_gps(batch, H: int, dev, label: str):
     library_ms = _cuda_ms(
         lambda: torch.zeros(R, H, device=dev).index_add_(0, edge_row, dZ))
     bound_ms, bound_by = _bound(E * H * 4 + 2 * E * 4 + R * H * 4, E * H)
-    plan = expand_cuda.segsum_plan(E, H, smem_plan.sm_count(dev))
+    plan = expand_cuda.segsum_plan(E, H, R, smem_plan.sm_count(dev))
     fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-    _log(f"k1_{label}", shapes=f"E={E},R={R},H={H}", span=plan.span,
+    _log(f"k1_{label}", shapes=f"E={E},R={R},H={H}", share=plan.share,
          grid=plan.grid, launches_per_call=per_call, **fields, ok=True)
     return fields
 
@@ -4389,45 +4443,35 @@ def run_bench(dev, smi) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_k1_sum(call, dev, label: str) -> dict:
+def check_k1_sum(call, dev, label: str, probe) -> dict:
     """K1 at one sum a step makes (`determinism_probe.record_k1_calls`):
     random values of the call's shape and dtype summed over its sorted
-    ids, against the f64 sum of the same values (rtol 1e-5, atol 1e-4)
-    and bit-equal from run to run; CUDA-graph-timed ms beside the plain
-    version's, `index_add_`'s on the unsorted ids (the library call), the
-    bytes bound and the stable sort that builds the view (`sort_ms`)."""
+    ids, against the f64 sum of the same values (rtol 1e-5, atol 1e-4),
+    positions outside [0, R) dropped, every unnamed row exactly 0, and
+    bit-equal from run to run; CUDA-graph-timed ms beside `zeros +
+    index_add_` on the unsorted ids (`probe.index_add_sum`, the library
+    call), the bytes bound, and the longest run and largest gap of its
+    ids."""
     from escgnn_tpu_torch.ops import expand_cuda
 
     (E, H), dtype, perm, rows, R = call
     gen = torch.Generator(device=dev).manual_seed(16)
     dZ = torch.randn(E, H, device=dev, generator=gen).to(dtype)
     got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
-    ids = torch.empty_like(rows).scatter_(0, perm.long(), rows).long()
-    want = torch.zeros(R, H, dtype=torch.float64, device=dev).index_add_(
-        0, ids, dZ.double())
-    err = _check_close(f"K1 {label}", got, want.float(), rtol=1e-5,
-                       atol=1e-4)
+    err = _check_close(f"K1 {label}", got, _f64_sum(dZ, perm, rows, R).float(),
+                       rtol=1e-5, atol=1e-4)
     if not torch.equal(got, expand_cuda.sorted_segment_sum(dZ, perm, rows,
                                                            R)):
         raise AssertionError(f"K1 {label}: not deterministic")
+    unnamed = _unnamed_rows(rows, R)
+    if unnamed.any() and got[unnamed].abs().max().item() != 0:
+        raise AssertionError(f"K1 {label}: a row no id names is not 0")
     ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows, R))
-    plain_ms = _cuda_ms(
-        lambda: expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, R))
-    library_ms = _cuda_ms(lambda: torch.zeros(
-        R, H, dtype=dtype, device=dev).index_add_(0, ids, dZ))
-    ids32 = ids.to(torch.int32)
-    sort_ms = _cuda_ms(lambda: torch.sort(ids32, stable=True))
-    bound_ms, bound_by = _bound(
-        E * H * dZ.element_size() + 2 * E * 4 + R * H * 4, E * H)
+    library_ms = _cuda_ms(probe.index_add_sum(dZ, perm, rows, R))
+    bound_ms, bound_by = probe.k1_bound_ms(dZ, perm, rows, R)
     return dict(shape=f"E={E},R={R},H={H},{str(dtype)[6:]}",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                sort_ms=sort_ms)
-
-
-# the steps of tools/determinism_probe.py whose sums K1 is held at: the
-# two largest (E x H) per step
-K1_SHAPE_STEPS = ("packed", "k123", "gps_zinc", "gps_pep", "tu")
+                **probe.ids_stats(rows, R), max_abs_err=err, ms=ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def run_determinism(dev, smi) -> dict:
@@ -4438,12 +4482,12 @@ def run_determinism(dev, smi) -> dict:
     model built anew from its seed, a fresh Adam) with bit-equal losses
     and gradients, then two graphed epochs of one pool (its batches twice
     over, the captured step replayed, weights, Adam and generators put
-    back between) with bit-equal losses. Then K1 against its f64 sum at
-    the two largest sums of the packed ZINC step (its graph pooling and
-    ragged GINE messages), k123's set edges, the GPS attention grids and
-    the TU pooling (`check_k1_sum`). Per step it prints K1's launches and
-    one profiled eager step's busy ms, its K1 ms and its sort kernels' ms
-    (the views' stable sorts). Returns K1's numbers by shape."""
+    back between) with bit-equal losses. Then K1 at every distinct sum
+    of every step (its shape and ids: `check_k1_sum`), one `[k1_call]`
+    line each, and per step K1's summed ms against `zeros + index_add_`'s
+    over all its calls. Per step it prints K1's launches and one
+    profiled eager step's busy ms, its K1 ms and its sort kernels' ms
+    (the views' stable sorts). Returns the per-step K1 sums."""
     tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tools")
     if tools not in sys.path:
@@ -4479,21 +4523,28 @@ def run_determinism(dev, smi) -> dict:
             k1_per_step=expand_cuda.launches, busy_ms=_busy_ms(prof),
             k1_ms=ms(K1_SYMBOL), sort_ms=ms("Sort") + ms("sort"),
             kernels=_kernel_events(prof))
-    shapes = {}
-    for name in K1_SHAPE_STEPS:
-        calls = sorted(probe.record_k1_calls(cases[name]),
-                       key=lambda c: -c[0][0] * c[0][1])
-        seen = []
-        for call in calls:
-            if call[0] not in seen and len(seen) < 2:
-                seen.append(call[0])
-                got = check_k1_sum(call, dev, name)
-                shapes[f"{name}_{got['shape']}"] = got
+    sums, slower = {}, []
+    for name, case in cases.items():
+        calls = probe.distinct_k1_calls(probe.record_k1_calls(case))
+        k1_sum = lib_sum = 0.0
+        for call, count in calls:
+            got = check_k1_sum(call, dev, name, probe)
+            k1_sum += count * got["ms"]
+            lib_sum += count * got["library_ms"]
+            ratio = got["ms"] / got["library_ms"]
+            if ratio > 1.1:
+                slower.append(f"{name}:{got['shape']}")
+            _log("k1_call", step=name, count=count, ratio=round(ratio, 4),
+                 **got)
+        sums[name] = dict(calls=sum(c for _, c in calls),
+                          distinct=len(calls), k1_ms=k1_sum,
+                          index_add_ms=lib_sum)
     _log("determinism", steps=len(steps), build_s=round(build_s, 3),
          seconds=round(time.perf_counter() - t0, 3),
-         per_step=json.dumps(steps), k1_shapes=json.dumps(shapes),
+         per_step=json.dumps(steps), k1_sums=json.dumps(sums),
+         k1_over_index_add_by_10pct=",".join(slower) or "none",
          card=json.dumps(smi), ok=True)
-    return shapes
+    return sums
 
 
 def main() -> int:
@@ -4710,7 +4761,7 @@ def main() -> int:
     # 15. the bench twin: bench.py's ten lines at full size, graphed
     k1_paths.update(run_bench(dev, smi))
     # 16. slice 16: two runs of each step from one state, bit for bit, and
-    # K1 at the sums it now takes
+    # K1 at every sum it takes there
     k1_sums = run_determinism(dev, smi)
 
     kernels = [
@@ -4719,7 +4770,8 @@ def main() -> int:
              replaces="escgnn_tpu/ops/expand_pallas.py:53",
              launches=main_launches["k1"],
              paths=dict(k1_paths, pool_graph=POOL_GRAPH_K1),
-             shapes={"gps_bench": k1_gps, "gps_pep": k1_pep, **k1_sums},
+             shapes={"gps_bench": k1_gps, "gps_pep": k1_pep},
+             per_step_sums=k1_sums,
              **k1),
         dict(name="zemb_countmat", route="cuda",
              source="escgnn_tpu_torch/csrc/zemb_countmat.cu",

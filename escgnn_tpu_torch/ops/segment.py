@@ -4,7 +4,10 @@ Every op takes an explicit validity mask instead of relying on
 out-of-range ids being dropped, so padding policy lives in one place.
 The copy levels of a batch give their padding rows an out-of-range id,
 which JAX drops and a gather refuses: `masked_ids` sends the masked
-rows to segment 0, where their neutral values change nothing.
+rows to segment 0, where their neutral values change nothing. A sorted
+view keeps that in-range id for its gather and sorts the masked rows
+last, under the id `num_segments`, where K1 drops them unread as JAX's
+sums drop out-of-range ids.
 Max and min fill masked rows with the dtype's finite extreme before the
 reduce (`scatter_reduce` with `include_self=False`, whose gradient splits
 a tie evenly, as JAX's does) and give `empty_value` for empty segments.
@@ -53,8 +56,10 @@ def masked_ids(segment_ids, mask: torch.Tensor):
 @dataclasses.dataclass(frozen=True)
 class SortedIds:
     """A stable sort of an id array: `ids` (E,) int32 in range (the rows a
-    mask drops sent to 0), `perm` (E,) int32 with `ids[perm]` =
-    `ids_sorted` non-decreasing, and the segment count."""
+    mask drops sent to 0), for the gather; `ids_sorted` (E,) int32
+    non-decreasing, the ids with the dropped rows sent to `num_segments`
+    (so sorted last, and dropped by K1), and `perm` (E,) int32 the stable
+    order that sorts them; the segment count."""
     ids: torch.Tensor
     perm: torch.Tensor
     ids_sorted: torch.Tensor
@@ -82,10 +87,10 @@ def _version(t) -> int:
 def sorted_ids(segment_ids, num_segments: int,
                mask: Optional[torch.Tensor] = None) -> SortedIds:
     """The sorted view of `segment_ids` (any integer dtype) over
-    `num_segments` segments, the rows `mask` drops sent to segment 0. In
-    a `sorted_views()` scope the view of one (ids, mask, count) is built
-    once, keyed on the tensors and their versions: an in-place refill of
-    either builds a new one."""
+    `num_segments` segments: the rows `mask` drops gather row 0 and sort
+    last, past every segment. In a `sorted_views()` scope the view of one
+    (ids, mask, count) is built once, keyed on the tensors and their
+    versions: an in-place refill of either builds a new one."""
     cache = _SCOPES[-1] if _SCOPES else None
     key = (id(segment_ids), id(mask), int(num_segments))
     versions = (_version(segment_ids), _version(mask))
@@ -94,9 +99,12 @@ def sorted_ids(segment_ids, num_segments: int,
         # the entry holds its tensors alive, so their ids name them alone
         if hit is not None and hit[0] == versions:
             return hit[2]
-    ids = segment_ids if mask is None else masked_ids(segment_ids, mask)
-    ids = ids.to(torch.int32)
-    ids_sorted, perm = torch.sort(ids, stable=True)
+    ids = segment_ids.to(torch.int32)
+    order = ids
+    if mask is not None:
+        order = torch.where(mask, ids, int(num_segments))
+        ids = masked_ids(ids, mask)
+    ids_sorted, perm = torch.sort(order, stable=True)
     view = SortedIds(ids, perm.to(torch.int32), ids_sorted,
                      int(num_segments))
     if cache is not None:

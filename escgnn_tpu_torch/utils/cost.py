@@ -749,6 +749,12 @@ def _active() -> list:
             if isinstance(m, CostMode)]
 
 
+def active() -> bool:
+    """Whether a CostMode is counting (a wrapper computes its charge only
+    then)."""
+    return bool(_active())
+
+
 @contextlib.contextmanager
 def kernel_scope():
     """A hand kernel's wrapper body: the active CostModes count none of

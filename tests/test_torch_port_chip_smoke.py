@@ -12,6 +12,8 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
 import chip_smoke  # noqa: E402
 
@@ -190,3 +192,42 @@ def test_bench_phase_names_every_line():
         assert chip_smoke.BENCH_K1_NODES.get(short, 0) == (
             k1.calls if k1 else 0), short
     assert "ppgn" not in chip_smoke.BENCH_K1_NODES
+
+
+def test_k1_cases_hold_the_regimes_they_name():
+    """`[k1]`'s cases on the CPU (the flagship view replaced by a small
+    one): the gap case leaves an interior gap of 4960 unnamed rows, the
+    short one sums 1024 positions into 928 rows, the masked one sorts
+    20494 positions last under id R; K1's plain version equals the f64
+    sum on each (positions outside [0, R) dropped) and every unnamed row
+    is 0."""
+    import types
+
+    import determinism_probe as probe
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    E, R = 64, 20
+    rows = torch.sort(torch.randint(0, R, (E,))).values.to(torch.int32)
+    batch = types.SimpleNamespace(
+        enc_edge_perm=torch.randperm(E).to(torch.int32),
+        enc_row_sorted=rows, enc_idx=torch.zeros(R, 4))
+    gen = torch.Generator().manual_seed(0)
+    cases = {c[0]: c[1:] for c in chip_smoke._k1_cases(batch, "cpu", gen)}
+    stats = {k: probe.ids_stats(v[2], v[3]) for k, v in cases.items()}
+    assert stats["gap_4960"]["largest_gap"] == 4960
+    assert cases["short_1024"][0].shape == (1024, 64)
+    assert cases["short_1024"][3] == 928
+    assert stats["masked_k123"]["dropped"] == 20494
+    assert stats["masked_k123"]["largest_gap"] >= 4960
+    assert stats["masked_k123"]["longest_run"] >= 3000
+    for name in ("gap_4960", "short_1024", "masked_k123"):
+        dZ, perm, rows, R, exact = cases[name]
+        assert exact
+        got = expand_cuda.sorted_segment_sum(dZ, perm, rows, R)
+        want = chip_smoke._f64_sum(dZ, perm, rows, R)
+        # the plain version adds the 3000-term run one term at a time in
+        # f32 (K1 on the card adds it in pieces: chip_smoke holds it at
+        # atol 1e-4)
+        torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-3)
+        unnamed = chip_smoke._unnamed_rows(rows, R)
+        assert not got[unnamed].any()

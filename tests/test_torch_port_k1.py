@@ -131,6 +131,50 @@ def test_as_rows_keeps_the_step_slice_and_copies_the_rest():
         assert rows.is_contiguous() and torch.equal(rows, other)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_drops_positions_outside_the_rows(dtype):
+    """Positions whose row lies outside [0, R) (a masked view's, sorted
+    last under R; negative ones first) add nothing: the plain version
+    equals the sum over the positions in range, as JAX's segment_sum
+    drops out-of-range ids."""
+    rng = np.random.default_rng(3)
+    E, R = 200, 40
+    ids = rng.integers(-3, R + 5, E).astype(np.int32)
+    ids[:50] = R  # masked rows, as the sorted views send them
+    rows = np.sort(ids)
+    perm = rng.permutation(E).astype(np.int32)
+    vals = rng.normal(size=(E, 6)).astype(np.float32)
+    dZ = torch.from_numpy(vals).to(dtype)
+    got = expand_cuda.sorted_segment_sum(dZ, torch.from_numpy(perm),
+                                         torch.from_numpy(rows), R)
+    keep = (rows >= 0) & (rows < R)
+    want = np.zeros((R, 6), np.float64)
+    np.add.at(want, rows[keep], dZ.float().numpy()[perm[keep]])
+    assert got.shape == (R, 6) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    want_jax = jax.ops.segment_sum(jnp.asarray(dZ.float().numpy()[perm]),
+                                   jnp.asarray(rows), R)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_jax), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_cost_charges_only_the_positions_read():
+    """`segsum_cost`: the plain version's FLOPs over all E positions, and
+    bytes for the dZ rows, perm and ids of the positions in range only
+    (the kernel never loads the others) plus the (R, H) f32 output."""
+    E, R, H = 100, 30, 8
+    rows = torch.sort(torch.randint(0, R, (E,))).values.to(torch.int32)
+    rows[70:] = R  # 30 masked positions, sorted last
+    rows[:5] = -1
+    perm = torch.randperm(E).to(torch.int32)
+    for dtype, elt in ((torch.float32, 4), (torch.bfloat16, 2)):
+        dZ = torch.zeros(E, H, dtype=dtype)
+        flops, trans, nbytes = expand_cuda.segsum_cost(dZ, perm, rows, R)
+        assert flops == E * H * (1 if elt == 4 else 2) + 4 * E
+        assert trans == 0
+        assert nbytes == 65 * (H * elt + 8) + R * H * 4
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """The wrapper with no library and no card: reaching the build
@@ -163,64 +207,93 @@ def test_wrapper_refuses_layouts_before_any_build(no_build, shape, stride,
 
 
 @pytest.mark.parametrize("E,H,sms,want", [
-    # the flagship: one span of 94 sorted edges per SM
-    (12288, 256, 132, SegsumPlan(94, 131, 2 * 131 * 256)),
+    # want: (rows R, the plan). The flagship: R + 2E = 28288 merge-path
+    # items (a position weighs 2, a row end 1), one share of 215 per SM
+    (12288, 256, 132, (3712, SegsumPlan(215, 132, 2 * 132 * 256, 32))),
     # the same on a 114-SM part
-    (12288, 256, 114, SegsumPlan(108, 114, 2 * 114 * 256)),
-    # one edge, five columns (slots of 8 floats); no edge
-    (1, 5, 132, SegsumPlan(1, 1, 2 * 8)),
-    (0, 5, 132, SegsumPlan(1, 1, 2 * 8)),
-    # chip_smoke's ragged and long-run cases, the PPGN_eff edge count
-    (1000, 96, 132, SegsumPlan(8, 125, 2 * 125 * 96)),
-    (20000, 256, 132, SegsumPlan(152, 132, 2 * 132 * 256)),
-    (21504, 128, 132, SegsumPlan(163, 132, 2 * 132 * 128)),
-    # past 256 per SM the span stops at 256 and the grid grows
-    (10**6, 256, 132, SegsumPlan(256, 3907, 2 * 3907 * 256)),
+    (12288, 256, 114, (3712, SegsumPlan(249, 114, 2 * 114 * 256, 32))),
+    # one edge on one row, five columns (slots of 8 floats); no edge: a
+    # share of one position's weight at least
+    (1, 5, 132, (1, SegsumPlan(2, 2, 2 * 2 * 8, 64))),
+    (0, 5, 132, (5, SegsumPlan(2, 3, 2 * 3 * 8, 64))),
+    # chip_smoke's ragged and long-run cases, a PPGN_eff-sized sum
+    (1000, 96, 132, (300, SegsumPlan(18, 128, 2 * 128 * 96, 64))),
+    (20000, 256, 132, (3000, SegsumPlan(326, 132, 2 * 132 * 256, 32))),
+    (21504, 128, 132, (3072, SegsumPlan(350, 132, 2 * 132 * 128, 32))),
+    # past 1024 items per SM the share stops at 1024 and the grid grows
+    (10**6, 256, 132, (10**5, SegsumPlan(1024, 2051, 2 * 2051 * 256, 32))),
+    # the regimes the sorted views brought: k123's masked set sum (a
+    # 4960-row gap; its masked positions count as items, unread), the
+    # GPS peptides and ZINC layer sums and the TU pooling, one share of
+    # 780, 59, 23 and 31 items per SM
+    (45408, 64, 132, (12016, SegsumPlan(780, 132, 2 * 132 * 64, 32))),
+    (2560, 96, 132, (2544, SegsumPlan(59, 130, 2 * 130 * 96, 64))),
+    (1024, 64, 132, (928, SegsumPlan(23, 130, 2 * 130 * 64, 64))),
+    (1928, 32, 132, (128, SegsumPlan(31, 129, 2 * 129 * 32, 64))),
 ])
 def test_plan_at_main_and_limit_shapes(E, H, sms, want):
-    assert expand_cuda.segsum_plan(E, H, sms) == want
+    R, plan = want
+    assert expand_cuda.segsum_plan(E, H, R, sms) == plan
 
 
 @pytest.mark.parametrize("num_sms", [1, 7, 114, 132])
 def test_plan_covers_every_edge_once(num_sms):
-    """For any shape: the spans tile [0, E) with the last one ragged at
-    most, one span per SM until spans reach MAX_SPAN, and slots for a head
-    and a tail per block."""
-    for E in (1, 2, 31, 94, 131, 132, 133, 1000, 12288, 33792, 10**5):
-        for H in (1, 5, 96, 256, 300):
-            p = expand_cuda.segsum_plan(E, H, num_sms)
-            assert 1 <= p.span <= expand_cuda.MAX_SPAN
-            assert (p.grid - 1) * p.span < E <= p.grid * p.span
-            assert p.grid <= num_sms or p.span == expand_cuda.MAX_SPAN
-            assert p.partial_floats == 2 * p.grid * (-(-H // 4) * 4)
+    """For any shape: the shares tile the R + POS_WEIGHT * E merge-path
+    items with the last one ragged at most, one share per SM until shares
+    reach MAX_SHARE, never under one position's weight, and slots for a
+    head and a tail per block."""
+    w = expand_cuda.POS_WEIGHT
+    for E in (0, 1, 2, 31, 94, 131, 132, 133, 1000, 12288, 33792, 10**5):
+        for R in (1, 5, 128, 3712, 12016):
+            for H in (1, 5, 96, 256, 300):
+                p = expand_cuda.segsum_plan(E, H, R, num_sms)
+                items = R + w * E
+                assert w <= p.share <= expand_cuda.MAX_SHARE
+                assert (p.grid - 1) * p.share < items <= p.grid * p.share
+                assert p.grid <= num_sms or p.share == expand_cuda.MAX_SHARE
+                assert p.partial_floats == 2 * p.grid * (-(-H // 4) * 4)
+                assert p.snap == (expand_cuda.SNAP
+                                  if p.share <= expand_cuda.SHORT_SHARE
+                                  else expand_cuda.SNAP // 2)
 
 
 def test_plan_forced_choices_and_bad_shapes():
-    """The plan is a function of (E, H) and the SM count alone, and
-    refuses an empty width, no SMs, a negative E and more blocks than the
-    counters can name."""
+    """The plan is a function of (E, H, R) and the SM count alone, and
+    refuses an empty width, no rows, no SMs, a negative E and more blocks
+    than the counters can name."""
     with pytest.raises(TypeError):
-        expand_cuda.segsum_plan(12288, 256, span=32)
-    for E, H, sms in ((-1, 8, 132), (8, 0, 132), (8, 8, 0)):
+        expand_cuda.segsum_plan(12288, 256, 3712, share=32)
+    for E, H, R, sms in ((-1, 8, 8, 132), (8, 0, 8, 132), (8, 8, 0, 132),
+                         (8, 8, 8, 0)):
         with pytest.raises(ValueError, match="bad shape"):
-            expand_cuda.segsum_plan(E, H, sms)
-    most = expand_cuda.MAX_GRID * expand_cuda.MAX_SPAN
-    assert expand_cuda.segsum_plan(most - expand_cuda.MAX_SPAN, 4, 1).grid \
-        == expand_cuda.MAX_GRID - 1
+            expand_cuda.segsum_plan(E, H, R, sms)
+    # R + 2E items: the most blocks the counters can name, then one more
+    most = expand_cuda.MAX_GRID * expand_cuda.MAX_SHARE
+    w = expand_cuda.POS_WEIGHT
+    E = (most - expand_cuda.MAX_SHARE - 1) // w
+    assert expand_cuda.segsum_plan(E, 4, 1, 1).grid == expand_cuda.MAX_GRID - 1
     with pytest.raises(ValueError, match="fewer than"):
-        expand_cuda.segsum_plan(most, 4, 1)
+        expand_cuda.segsum_plan((most - 1) // w, 4, 1, 1)
 
 
 def test_source_constants_match_the_plan():
-    """The kernel's span limit, slot alignment and grid limit are the
-    plan's, and the ticket counter's fields (a 24-bit sum and two 20-bit
-    block indices) fill its 64 bits."""
+    """The kernel's share limit, position weight, snap window, slot
+    alignment and grid limit are the plan's, its staging holds a share's
+    positions, the window before them and one past them, and the ticket
+    counter's fields (a 24-bit sum and two 20-bit block indices) fill its
+    64 bits."""
     src = open(SOURCE).read()
 
     def const(name):
         return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
 
-    assert int(const("kMaxSpan")) == expand_cuda.MAX_SPAN
+    assert int(const("kMaxShare")) == expand_cuda.MAX_SHARE
+    assert int(const("kPosWeight")) == expand_cuda.POS_WEIGHT
+    assert int(const("kSnap")) == expand_cuda.SNAP
+    assert int(const("kShortShare")) == expand_cuda.SHORT_SHARE
+    # a share's positions, the window before them and one past them
+    assert int(const("kMaxStage")) >= expand_cuda.MAX_SHARE // \
+        expand_cuda.POS_WEIGHT + expand_cuda.SNAP + 2
     assert int(const("kSlotAlign")) == expand_cuda.SLOT_ALIGN
     assert const("kMaxGrid").split("//")[0].strip() == "1 << 20"
     assert expand_cuda.MAX_GRID == 2**20
@@ -232,12 +305,12 @@ def test_source_constants_match_the_plan():
 
 def test_launcher_signature_takes_the_row_stride():
     """The C launchers take dZ's row stride as a 64-bit int after dZ,
-    then the span from the plan."""
+    then the share from the plan."""
     for fn in ("expand_segsum_f32", "expand_segsum_bf16"):
         restype, args = _build.SIGNATURES["expand_segsum"][fn]
         assert restype is ctypes.c_int and len(args) == 12
         assert args[1] is ctypes.c_longlong
-        assert args[4:8] == [ctypes.c_int] * 4  # E, H, R, span
+        assert args[4:8] == [ctypes.c_int] * 4  # E, H, R, share
     assert set(_build.SIGNATURES["expand_segsum"]) == {
         "expand_segsum_f32", "expand_segsum_bf16"}
 
@@ -259,6 +332,7 @@ def test_sweep_phase_anchors_are_in_the_source():
     sweep = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sweep)
     src = open(SOURCE).read()
-    assert set(sweep.PHASES) == {"launch", "indices", "walk", "chains"}
+    assert set(sweep.PHASES) == {"launch", "search", "indices", "walk",
+                                 "chains"}
     for anchor in sweep.PHASES.values():
         assert src.count(anchor) == 1, anchor

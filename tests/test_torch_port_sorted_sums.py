@@ -9,11 +9,15 @@ gradient, on numpy-seeded values of rank 1, 2 and 3 with empty segments
 and masked rows whose padding ids lie out of range: f32 at rtol 1e-6,
 bf16 at 2e-2 of the output's norm, a few bf16 roundings (2^-8 each) of
 the softmax's chain (K1 adds bf16 rows in f32 where JAX adds in bf16).
-Then: a view refilled in place by `copy_` (as the pool step refills its
-buffers) is rebuilt, not reused; a scope builds each view once; the CPU
-routing ends in K1's plain version; a source scan of the port finds no
-atomic float sum outside the allowlist; and `tools/determinism_probe.py`
-names the first op whose output bits differ between two runs.
+The same on sparse ids (an interior gap of 4000 segments, 5000 segments
+for 96 rows, masked rows beside the gap), where K1 zeroes most rows; a
+masked view gathers in range and sorts its masked rows last, under the
+segment count, where K1 drops them. Then: a view refilled in place by
+`copy_` (as the pool step refills its buffers) is rebuilt, not reused; a
+scope builds each view once; the CPU routing ends in K1's plain version;
+a source scan of the port finds no atomic float sum outside the
+allowlist; and `tools/determinism_probe.py` names the first op whose
+output bits differ between two runs and tables K1's calls.
 """
 
 import ast
@@ -184,9 +188,108 @@ def test_scope_builds_each_view_once():
     assert tseg.sorted_ids(ids, 4) is not a
     assert not tseg._SCOPES
     assert b.ids.tolist() == [3, 1, 0, 0, 3]
-    assert b.ids_sorted.tolist() == [0, 0, 1, 3, 3]
-    assert b.perm.tolist() == [2, 3, 1, 0, 4]  # stable
+    # the masked row sorts last, under the segment count (K1 drops it)
+    assert b.ids_sorted.tolist() == [0, 1, 3, 3, 4]
+    assert b.perm.tolist() == [3, 1, 0, 4, 2]  # stable
     assert b.perm.dtype == b.ids_sorted.dtype == torch.int32
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_masked_view_gathers_in_range_and_sorts_masked_last(seed):
+    """A masked view's `ids` stay in [0, S) for the forward gather (the
+    masked rows on 0, the padding ids never read), while `ids_sorted`
+    is the unmasked ids sorted, then the masked rows under id S; `perm`
+    is the stable order that sorts them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S, E).astype(np.int32)
+    mask = rng.random(E) > 0.4
+    padded = np.where(mask, ids, S + 7).astype(np.int32)
+    view = tseg.sorted_ids(torch.from_numpy(padded), S,
+                           torch.from_numpy(mask))
+    got_ids = view.ids.numpy()
+    assert ((got_ids >= 0) & (got_ids < S)).all()
+    np.testing.assert_array_equal(got_ids, np.where(mask, ids, 0))
+    kept = int(mask.sum())
+    order = np.where(mask, ids, S)
+    want_perm = np.argsort(order, kind="stable")
+    np.testing.assert_array_equal(view.perm.numpy(), want_perm)
+    np.testing.assert_array_equal(view.ids_sorted.numpy(), order[want_perm])
+    np.testing.assert_array_equal(view.ids_sorted.numpy()[:kept],
+                                  np.sort(ids[mask]))
+    assert (view.ids_sorted.numpy()[kept:] == S).all()
+
+
+def _sparse_ids(pattern, n, rng):
+    """(segments, ids, mask) of `pattern`: ids on both sides of an
+    interior gap of 4000 unnamed rows; ids over 5000 segments, far more
+    than positions; the gap with a third of the rows masked, their ids
+    out of range."""
+    if pattern == "wide":
+        return 5000, rng.integers(0, 5000, n).astype(np.int32), None
+    segs = 4100
+    ids = np.where(rng.random(n) < 0.5, rng.integers(0, 40, n),
+                   rng.integers(4040, segs, n)).astype(np.int32)
+    if pattern == "gap":
+        return segs, ids, None
+    mask = rng.random(n) > 0.33
+    return segs, np.where(mask, ids, segs + 3).astype(np.int32), mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pattern", ["gap", "wide", "masked_gap"])
+@pytest.mark.parametrize("name", ["sum", "mean"])
+def test_sparse_sums_against_jax(name, pattern, dtype):
+    """segment_sum and segment_mean where K1's ids are sparse (an
+    interior gap of 4000 rows, 5000 segments for 96 positions, masked
+    rows with out-of-range ids) against the JAX package, values and
+    gradients at the file's tolerances; every unnamed segment is 0."""
+    rng = np.random.default_rng(7)
+    n = 96
+    segs, ids, mask = _sparse_ids(pattern, n, rng)
+    vals = rng.normal(size=(n, 3)).astype(np.float32)
+    proj = rng.normal(size=(segs, 3)).astype(np.float32)
+    jfn, tfn = getattr(jseg, f"segment_{name}"), getattr(tseg, f"segment_{name}")
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else torch.from_numpy(mask)
+    j_out, j_grad = _jax_value_and_grad(
+        lambda x: jfn(x, jnp.asarray(ids), segs, mask=jm), vals, proj, dtype)
+    t_out, t_grad = _torch_value_and_grad(
+        lambda x: tfn(x, torch.from_numpy(ids), segs, mask=tm), vals, proj,
+        dtype)
+    _close(t_out, j_out, dtype)
+    _close(t_grad, j_grad, dtype)
+    named = np.zeros(segs, bool)
+    named[ids[mask] if mask is not None else ids] = True
+    assert not t_out[~named].any()
+    if mask is not None:
+        assert not t_grad[~mask].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pattern", ["gap", "wide"])
+def test_sparse_gather_gradient_against_jax(pattern, dtype):
+    """gather_rows' gradient (K1 over the ids' view) where the ids are
+    sparse in the rows they gather, against `jax.ops.segment_sum` of the
+    cotangent and jax.grad of `jnp.take`; rows never gathered get 0."""
+    rng = np.random.default_rng(8)
+    n = 96
+    segs, ids, _ = _sparse_ids(pattern, n, rng)
+    x = rng.normal(size=(segs, 2)).astype(np.float32)
+    proj = rng.normal(size=(n, 2)).astype(np.float32)
+    _, j_grad = _jax_value_and_grad(
+        lambda v: jnp.take(v, jnp.asarray(ids), axis=0), x, proj, dtype)
+    t_out, t_grad = _torch_value_and_grad(
+        lambda v: tseg.gather_rows(v, torch.from_numpy(ids)), x, proj, dtype)
+    np.testing.assert_array_equal(t_out, np.asarray(
+        jnp.take(jnp.asarray(x).astype(dtype), jnp.asarray(ids), axis=0),
+        np.float32))
+    _close(t_grad, j_grad, dtype)
+    cot = jnp.asarray(proj).astype(dtype).astype(jnp.float32)
+    by_ops = jax.ops.segment_sum(cot, jnp.asarray(ids), segs)
+    _close(t_grad, by_ops, dtype)
+    unnamed = np.ones(segs, bool)
+    unnamed[ids] = False
+    assert not t_grad[unnamed].any()
 
 
 def test_cpu_routing_ends_in_k1_plain(monkeypatch):
@@ -293,3 +396,34 @@ def test_determinism_probe_names_the_first_differing_op():
     b["ops"][7] = (op, where, sums + 1)
     named = probe.compare(a, b)["first_op_differing"]
     assert named["index"] == 7 and named["op"] == op
+
+
+def test_determinism_probe_k1_helpers():
+    """The probe's K1 table on the CPU: one eager step's calls recorded
+    and deduplicated by shape and ids (each with its count), the stats of
+    an id array (longest run, largest unnamed stretch, dropped
+    positions), and `zeros + index_add_` on the unsorted ids equal to
+    K1's plain version, positions outside [0, R) dropped."""
+    import sys
+
+    tools = str(pathlib.Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import determinism_probe as probe
+
+    case = probe.build_cases(torch.device("cpu"), ["tu"], num_workers=0,
+                             smoke=True)["tu"]
+    calls = probe.record_k1_calls(case)
+    distinct = probe.distinct_k1_calls(calls)
+    assert sum(c for _, c in distinct) == len(calls) > len(distinct) > 0
+    assert len({(d[0][0], d[0][4], d[0][3].numpy().tobytes())
+                for d in distinct}) == len(distinct)
+    rows = torch.tensor([-1, 0, 0, 0, 5, 5, 9, 12, 12], dtype=torch.int32)
+    assert probe.ids_stats(rows, 12) == dict(longest_run=3, largest_gap=4,
+                                             dropped=3)
+    assert probe.ids_stats(rows, 20)["largest_gap"] == 7
+    perm = torch.randperm(9).to(torch.int32)
+    dZ = torch.randn(9, 4)
+    got = probe.index_add_sum(dZ, perm, rows, 12)()[:12]
+    want = expand_cuda.sorted_segment_sum_plain(dZ, perm, rows, 12)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -19,8 +19,11 @@ uninitialized (`empty*`) are not compared. A hand kernel launched
 through ctypes is no aten op: a difference it made shows at the op that
 reads its output.
 
-`--time-k1` times every K1 call of one step alone, slowest first, beside
-`index_add_` on the same values. `--list-nondeterministic` also runs
+`--time-k1` times every distinct K1 call of one step (its shape and ids)
+alone, CUDA-graph timed as `chip_smoke.py` times kernels (so the
+wrapper's host time is not in it), slowest first, beside `zeros +
+index_add_` on the same values and ids, the bytes bound, and the
+longest run and largest gap of unnamed rows of its ids. `--list-nondeterministic` also runs
 each step once under `torch.use_deterministic_algorithms(True,
 warn_only=True)` and prints
 the ops PyTorch warns have no deterministic CUDA kernel. That mode is
@@ -298,17 +301,6 @@ def nondeterministic_ops(case: Case) -> list:
                    if "deterministic" in str(w.message)})
 
 
-def _event_ms(fn, iters: int = 20) -> float:
-    fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def record_k1_calls(case: Case) -> list:
     """K1's calls in one eager step of `case` on a fresh model: each
     call's (values shape, dtype, perm, sorted ids, rows), its ids copied;
@@ -333,26 +325,77 @@ def record_k1_calls(case: Case) -> list:
     return calls
 
 
+def distinct_k1_calls(calls: list) -> list:
+    """`record_k1_calls`' calls, one of each (shape, dtype, rows, perm,
+    sorted ids), in first-call order: [(call, times it was made)]."""
+    seen: dict = {}
+    for call in calls:
+        (E, H), dtype, perm, rows, R = call
+        key = (E, H, dtype, R, perm.cpu().numpy().tobytes(),
+               rows.cpu().numpy().tobytes())
+        if key in seen:
+            seen[key][1] += 1
+        else:
+            seen[key] = [call, 1]
+    return [tuple(v) for v in seen.values()]
+
+
+def ids_stats(rows, R: int) -> dict:
+    """Of sorted ids over R rows: the longest run of one id, the largest
+    stretch of rows no id names, and the positions dropped (ids outside
+    [0, R))."""
+    keep = rows[(rows >= 0) & (rows < R)].long()
+    counts = torch.bincount(keep, minlength=R)[:R]
+    named = torch.cat([torch.tensor([-1], device=rows.device),
+                       torch.nonzero(counts).flatten(),
+                       torch.tensor([R], device=rows.device)])
+    return dict(longest_run=int(counts.max()) if R else 0,
+                largest_gap=int((named[1:] - named[:-1] - 1).max()),
+                dropped=int(rows.numel() - keep.numel()))
+
+
+def index_add_sum(dZ, perm, rows, R: int):
+    """`zeros + index_add_` computing K1's sum on the same values: the
+    unsorted ids (positions outside [0, R) sent to a trash row past the
+    end, as K1 drops them), built outside the returned call."""
+    ids = torch.empty_like(rows).scatter_(0, perm.long(), rows).long()
+    ids = torch.where((ids >= 0) & (ids < R), ids, R)
+    H, dtype = dZ.shape[1], dZ.dtype
+    return lambda: torch.zeros(R + 1, H, dtype=dtype,
+                               device=dZ.device).index_add_(0, ids, dZ)
+
+
+def k1_bound_ms(dZ, perm, rows, R: int) -> tuple:
+    """(least ms on an H100 SXM, "bytes" or "operations"): K1's charge
+    (`segsum_cost`: the positions in range read once, the output written
+    once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s f32."""
+    from chip_smoke import _bound
+    from escgnn_tpu_torch.ops import expand_cuda
+
+    flops, _, nbytes = expand_cuda.segsum_cost(dZ, perm, rows, R)
+    return _bound(nbytes, flops)
+
+
 def k1_call_times(case: Case) -> list:
-    """Every K1 call of one eager step of `case` (`record_k1_calls`),
-    timed alone with CUDA events on random values of its shape, beside
-    `index_add_` on the unsorted ids: [(shape, rows, longest run of one
-    id, K1 ms, index_add_ ms)], slowest first."""
+    """Every distinct K1 call of one eager step of `case`, CUDA-graph
+    timed alone on random values of its shape (`chip_smoke._cuda_ms`)
+    beside `index_add_sum`: [dict(shape, rows, count, longest_run,
+    largest_gap, dropped, k1_ms, index_add_ms, bound_ms)], slowest
+    first."""
+    from chip_smoke import _cuda_ms
     from escgnn_tpu_torch.ops import expand_cuda
 
     out = []
-    for (E, H), dtype, perm, rows, R in record_k1_calls(case):
+    for call, count in distinct_k1_calls(record_k1_calls(case)):
+        (E, H), dtype, perm, rows, R = call
         dZ = torch.randn(E, H, device=perm.device).to(dtype)
-        ids = torch.empty_like(rows).scatter_(0, perm.long(), rows).long()
-        run = int(torch.unique_consecutive(rows, return_counts=True)[1]
-                  .max()) if E else 0
-        k1 = _event_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows,
-                                                              R))
-        lib = _event_ms(lambda: torch.zeros(R, H, dtype=dtype,
-                                            device=dZ.device)
-                        .index_add_(0, ids, dZ))
-        out.append(([E, H, str(dtype)[6:]], R, run, k1, lib))
-    return sorted(out, key=lambda c: -c[3])
+        k1 = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(dZ, perm, rows,
+                                                             R))
+        lib = _cuda_ms(index_add_sum(dZ, perm, rows, R))
+        out.append(dict(shape=[E, H, str(dtype)[6:]], rows=R, count=count,
+                        **ids_stats(rows, R), k1_ms=k1, index_add_ms=lib,
+                        bound_ms=k1_bound_ms(dZ, perm, rows, R)[0]))
+    return sorted(out, key=lambda c: -c["k1_ms"])
 
 
 def main(argv=None) -> int:
