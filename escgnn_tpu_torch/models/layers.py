@@ -110,12 +110,16 @@ class MaskedBatchNorm(nn.Module):
     refresh with `deterministic=True`). Float weights (row
     multiplicities) make BN over deduplicated rows equal BN over the
     expanded row set. Statistics and normalization run in f32; the output
-    has the input's dtype.
+    has the input's dtype. The batch statistics take two passes: the
+    mean, then the sums of the rows centred about it (JAX sums x and x^2
+    in one pass), so a column of equal rows normalizes to 0 on every
+    device.
 
     `axis` (JAX's `axis_name`): the rows are split over the ranks of this
     mesh axis (a name or a tuple of names, `parallel/mesh.py`), so the
-    batch statistics' sums s1, s2 and n are summed over them and every
-    rank normalizes with the global statistics.
+    batch statistics' sums (the rows' sum and count, then the centred
+    rows' sums) are summed over them and every rank normalizes with the
+    global statistics.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -137,24 +141,35 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask: Optional[torch.Tensor] = None, axis=None):
         xf = x.to(torch.float32)
         if self.use_running_average:
-            mean, var = self.running_mean, self.running_var
+            y = ((xf - self.running_mean)
+                 * torch.rsqrt(self.running_var + self.eps))
         else:
             if mask is None:
                 m = torch.ones((x.shape[0], 1), device=x.device)
             else:
                 m = mask.to(torch.float32)[:, None]
             s1 = (xf * m).sum(0)
-            s2 = (xf * xf * m).sum(0)
             n = m.sum()
             if axis is not None:
-                from escgnn_tpu_torch.parallel.mesh import psum
-
-                f = s1.shape[0]
-                tot = psum(torch.cat([s1, s2, n.reshape(1)]), axis)
-                s1, s2, n = tot[:f], tot[f:2 * f], tot[2 * f]
+                tot = _psum(torch.cat([s1, n.reshape(1)]), axis)
+                s1, n = tot[:-1], tot[-1]
             n = n.clamp_min(1.0)
-            mean = s1 / n
-            var = (s2 / n - mean * mean).clamp_min(0.0)
+            # centred about the first pass's mean, a constant (the result
+            # does not depend on it): a column whose rows are equal
+            # normalizes to 0, not to its mean's rounding error over
+            # sqrt(eps), which the order of the sums sets
+            shift = (s1 / n).detach()
+            xf = xf - shift
+            d1 = (xf * m).sum(0)
+            d2 = (xf * xf * m).sum(0)
+            if axis is not None:
+                f = d1.shape[0]
+                tot = _psum(torch.cat([d1, d2]), axis)
+                d1, d2 = tot[:f], tot[f:]
+            dmean = d1 / n
+            xf = xf - dmean
+            mean = shift + dmean
+            var = (d2 / n - dmean * dmean).clamp_min(0.0)
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp_min(1.0)
                 mom = self.momentum
@@ -162,8 +177,14 @@ class MaskedBatchNorm(nn.Module):
                     (1 - mom) * self.running_mean + mom * mean)
                 self.running_var.copy_(
                     (1 - mom) * self.running_var + mom * unbiased)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
+            y = xf * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def _psum(x, axis):
+    from escgnn_tpu_torch.parallel.mesh import psum
+
+    return psum(x, axis)
 
 
 def set_use_running_average(model: nn.Module, flag: bool) -> list:

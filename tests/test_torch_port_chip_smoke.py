@@ -1,8 +1,10 @@
 """chip_smoke.py's count of a kernel's launches in CUDA-graph replays:
 the kernel's nodes in the captured graph's DOT dump times the replays.
 The capture itself needs a card; the DOT reading and the wrapping of
-`torch.cuda.CUDAGraph` are checked here, and so is `_hold_grads`, the
-rule the card's parallel-mode gradients are held by.
+`torch.cuda.CUDAGraph` are checked here, and so are `_hold_grads`, the
+rule the card's parallel-mode gradients are held by, and
+`_hold_grads_to_order_spread`, `[small_gps]`'s rule for the
+ppa_uniform gradients.
 """
 
 import os
@@ -231,3 +233,41 @@ def test_k1_cases_hold_the_regimes_they_name():
         torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-3)
         unnamed = chip_smoke._unnamed_rows(rows, R)
         assert not got[unnamed].any()
+
+
+@pytest.mark.parametrize("card_gap,card_spread,ok", [
+    (0.0, 0.0, True), (2.9e-3, 0.0, True), (3.2e-3, 0.0, False),
+    (3.2e-3, 2.0e-3, False), (2.9e-3, 2.0e-3, True)])
+def test_ppa_grads_held_to_twice_the_order_spread_plus_1e5(
+        card_gap, card_spread, ok):
+    """`[small_gps]`'s ppa_uniform rule: the card's largest gradient gap
+    over the largest gradient may be at most twice the largest gap the
+    reordered batches give on the CPU, plus 1e-5 (here 1.5e-3, the
+    largest gradient 1); the card's own reordered spread (`card_spread`)
+    is reported and does not widen the limit."""
+    cpu = {"grad w": torch.tensor([1.0, -0.5]), "grad b": torch.zeros(2)}
+    gpu = {"grad w": cpu["grad w"], "grad b": torch.tensor([card_gap, 0.0])}
+    spreads = {"cpu": iter([1.0e-3, 1.5e-3, 0.5e-3]),
+               "card": iter([0.0, card_spread, 0.0])}
+
+    def run(cfg, kw, host, loss_fn, device):
+        base = cpu if device == "cpu" else gpu
+        d = next(spreads["cpu" if device == "cpu" else "card"])
+        return {"grad w": base["grad w"] + torch.tensor([d, 0.0]),
+                "grad b": base["grad b"]}
+
+    args = ("ppa", None, {}, [None] * 3, None, run, cpu, gpu,
+            ["grad w", "grad b"], 1.0, "card")
+    if not ok:
+        with pytest.raises(AssertionError, match="reordered spread"):
+            chip_smoke._hold_grads_to_order_spread(*args)
+        return
+    res = chip_smoke._hold_grads_to_order_spread(*args)
+    # the gaps are f32 differences: rel 1e-4
+    assert res["ppa_grad_limit"] == pytest.approx(2 * 1.5e-3 + 1e-5,
+                                                  rel=1e-4)
+    assert res["ppa_cpu_reordered_gaps"] == pytest.approx(
+        [1.0e-3, 1.5e-3, 0.5e-3], rel=1e-4)
+    assert res["ppa_card_reordered_gaps"] == pytest.approx(
+        [0.0, card_spread, 0.0], rel=1e-4, abs=1e-12)
+    assert res["ppa_grad_gap_over_gmax"] == pytest.approx(card_gap)

@@ -3,7 +3,8 @@ weights, on the CPU.
 
 The JAX `run_zinc.py` and `run_graphcount.py` mains run in this process
 (`sys.argv` patched, `--num_workers 0`: JAX is initialised, so nothing
-forks) at 40 graphs, hidden 16, 2 layers, batch 8, 3 epochs. The flax
+forks) at 40 graphs, hidden 16, 2 layers, batch 8, 3 epochs; the
+counting driver with NestedGIN_eff and with PPGN_eff. The flax
 variables each one initialises (`model.init(jax.random.key(seed), first
 batch of splits["train"][:2])`, read as the driver makes them) are
 carried into the twin's model by `weights.load_flax_variables`, through
@@ -72,17 +73,24 @@ def one_torch_thread():
 def _run_jax(monkeypatch, name, flags, data_dir, res_dir):
     """Run the JAX driver's main; returns the flax variables it
     initialised."""
+    import escgnn_tpu.models.ppgn as jax_ppgn
+
     mod = load_jax_driver(name)
     captured = {}
 
-    class Capturing(mod.NestedGINEff):
-        def init(self, *args, **kwargs):
-            variables = super().init(*args, **kwargs)
-            # a host copy: the driver's jitted step donates the state
-            captured["variables"] = jax.tree.map(np.array, variables)
-            return variables
+    def capturing(cls):
+        class Capturing(cls):
+            def init(self, *args, **kwargs):
+                variables = super().init(*args, **kwargs)
+                # a host copy: the driver's jitted step donates the state
+                captured["variables"] = jax.tree.map(np.array, variables)
+                return variables
 
-    monkeypatch.setattr(mod, "NestedGINEff", Capturing)
+        return Capturing
+
+    monkeypatch.setattr(mod, "NestedGINEff", capturing(mod.NestedGINEff))
+    # the counting driver imports PPGN inside main()
+    monkeypatch.setattr(jax_ppgn, "PPGN", capturing(jax_ppgn.PPGN))
     monkeypatch.setattr(sys, "argv", [os.path.join(REPO, f"{name}.py"),
                                       *flags, "--data_dir", str(data_dir),
                                       "--res_dir", str(res_dir)])
@@ -119,6 +127,9 @@ def _close(a, b, rel=1e-4):
     ("run_zinc", run_zinc, ["--bn_eval", "batch"], 1e-4),
     ("run_graphcount", run_graphcount, [], 3e-3),
     ("run_graphcount", run_graphcount, ["--bn_eval", "batch"], 1e-4),
+    ("run_graphcount", run_graphcount, ["--model", "PPGN_eff"], 3e-3),
+    ("run_graphcount", run_graphcount, ["--model", "PPGN_eff",
+                                        "--bn_eval", "batch"], 1e-4),
 ])
 def test_twin_tracks_the_jax_driver(monkeypatch, tmp_path, name, twin,
                                     extra, val_rel):
