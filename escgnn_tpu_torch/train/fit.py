@@ -228,7 +228,8 @@ def fit(args, model, opt, loss_fn, splits: dict, spec, device, *,
     writes the log and calls `on_best`. `on_best(epoch)` runs after the
     test MAE of each new best epoch. Returns the best val and test MAE
     and one record per epoch (loss, val MAE, test MAE or None, seconds,
-    train seconds, steps, the steps' losses)."""
+    train seconds, steps, the steps' losses). On the card it prints the
+    process's peak device memory at the end."""
     sched = PlateauScheduler(factor=args.lr_decay_factor,
                              patience=args.patience)
     run_epoch = _epoch_runner(args, model, opt, loss_fn, splits, spec,
@@ -306,6 +307,12 @@ def fit(args, model, opt, loss_fn, splits: dict, spec, device, *,
                            test_mae=test_mae, seconds=seconds,
                            train_seconds=train_s, steps=len(ep_losses),
                            step_losses=ep_losses.tolist()))
+    if device.type == "cuda":
+        # what the card must hold for this run (rows sharing one card)
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_reserved(device) / 2**30:.2f} GiB "
+              f"reserved, {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+              f" GiB allocated", flush=True)
     return dict(best_val=best_val, best_test=best_test, epochs=epochs)
 
 

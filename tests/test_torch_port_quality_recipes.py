@@ -6,7 +6,11 @@ the twin's parser takes every flag and resolves it, defaults included,
 to the flags the JAX run recorded (`config.json`, GPS: `config.yaml`).
 The two GPS rows whose records keep only their stdout are held to the
 graph and epoch counts `BASELINE.md` states for them and to the epochs
-their archived stdout logs.
+their archived stdout logs. The three clipped PPGN_eff rows differ from
+their records in `--epochs` alone: the last epoch their JAX logs reached
+(the budget ran out there); their JAX test MAE and best-val epoch are
+the ones `BASELINE.md` states and their logs show, and each limit is
+1.5 x that MAE.
 """
 
 import gzip
@@ -38,6 +42,16 @@ RECORDS = {
     "ogb_tri_nppgn": "ogb_tri_nppgn",
     "gps_zinc": "gps_canonical",
     "count_ppgn": "count_cycle_t0_ppgn",
+    "count_ppgn_clip_t0": "count_cycle_t0_ppgn_clip",
+    "count_ppgn_clip_t1": "count_cycle_t1_ppgn_clip",
+    "cgra_ppgn_clip_t0": "count_graphlet_t0_ppgn_clip",
+}
+# rows cut to the epochs their JAX log reached: row -> (epochs, JAX test
+# MAE raw, its best-val epoch, the quality limit)
+CUT = {
+    "count_ppgn_clip_t0": (487, 0.00639, 429, 0.00959),
+    "count_ppgn_clip_t1": (858, 0.05914, 854, 0.08871),
+    "cgra_ppgn_clip_t0": (800, 0.12044, 727, 0.18066),
 }
 # GPS rows whose record has no cmd_input.txt: row -> (config, record)
 STDOUT_ONLY = {
@@ -48,9 +62,10 @@ STDOUT_ONLY = {
 OUTPUT_FLAGS = {"--res_dir", "--data_dir", "out_dir", "dataset.dir"}
 
 
-def run_script(out, *names, seed=None) -> dict:
+def run_script(out, *names, seed=None, init=None) -> dict:
     """name -> (module, argv) of each row the script starts, read from a
-    stand-in `python3` that logs its arguments in place of running."""
+    stand-in `python3` that logs its arguments in place of running (with
+    `init`, the row's argv as `tools/carry_jax_init.py run` gets it)."""
     bin_dir = os.path.join(out, "bin")
     os.makedirs(bin_dir, exist_ok=True)
     for tool, body in (("python3", 'printf "%s\\n" "$@"'),
@@ -61,19 +76,30 @@ def run_script(out, *names, seed=None) -> dict:
         os.chmod(path, 0o755)
     env = dict(os.environ, PATH=bin_dir + os.pathsep + os.environ["PATH"])
     env.pop("SEED", None)
+    env.pop("INIT", None)
     if seed is not None:
         env["SEED"] = str(seed)
+    if init is not None:
+        env["INIT"] = init
     runs = os.path.join(out, "runs")
     done = subprocess.run(["bash", SCRIPT, runs, *names], env=env,
                           capture_output=True, text=True, check=True)
     assert "FAILED" not in done.stdout
-    rows, tag = {}, "" if seed is None else f"_s{seed}"
+    tag = ("" if init is None else "_jaxinit") + (
+        "" if seed is None else f"_s{seed}")
+    rows = {}
     for log in os.listdir(runs):
         assert log.endswith(tag + ".log"), log
         with open(os.path.join(runs, log)) as f:
             argv = [a.replace(runs, "$out") for a in f.read().splitlines()]
-        assert argv[0] == "-m" and argv[1].startswith("escgnn_tpu_torch.")
-        rows[log[:-len(tag + ".log")]] = (argv[1].split(".", 1)[1], argv[2:])
+        if init is None:
+            assert argv[0] == "-m" and argv[1].startswith("escgnn_tpu_torch.")
+            module, argv = argv[1].split(".", 1)[1], argv[2:]
+        else:
+            assert argv[:3] == ["tools/carry_jax_init.py", "run", init]
+            assert argv[4] == "--"
+            module, argv = argv[3], argv[5:]
+        rows[log[:-len(tag + ".log")]] = (module, argv)
     return rows
 
 
@@ -159,7 +185,11 @@ def test_row_runs_the_jax_recipe(name, rows):
     record = RECORDS[name]
     jax_module, jax_argv = jax_command(record)
     assert module == jax_module
-    assert flag_values(argv) == flag_values(jax_argv)
+    want_flags, got_flags = flag_values(jax_argv), flag_values(argv)
+    if name in CUT:
+        assert int(got_flags.pop("--epochs")) == CUT[name][0]
+        assert int(want_flags.pop("--epochs")) >= CUT[name][0]
+    assert got_flags == want_flags
     # the twin resolves the flags, defaults included, as JAX's run did
     if module == "run_gps":
         ns.cfg = os.path.join(ROOT, ns.cfg)
@@ -173,9 +203,40 @@ def test_row_runs_the_jax_recipe(name, rows):
         with open(os.path.join(ARCHIVE, record, "config.json")) as f:
             want = json.load(f)
         got = vars(ns)
+        skip = ("res_dir", "data_dir") + (("epochs",) if name in CUT else ())
         diff = {k: (v, got.get(k, "missing")) for k, v in want.items()
-                if k not in ("res_dir", "data_dir") and got.get(k) != v}
+                if k not in skip and got.get(k) != v}
         assert not diff, diff
+
+
+def _epoch_lines(record: str) -> list:
+    with gzip.open(os.path.join(ARCHIVE, record, "log.txt.gz"), "rt") as f:
+        return [ln for ln in f if re.match(r"epoch \d+ ", ln)]
+
+
+@pytest.mark.parametrize("name", sorted(CUT))
+def test_cut_row_ends_where_its_jax_log_ends(name):
+    lines = _epoch_lines(RECORDS[name])
+    last = int(re.match(r"epoch (\d+) ", lines[-1]).group(1))
+    assert last == len(lines) == CUT[name][0]
+
+
+@pytest.mark.parametrize("name", sorted(CUT))
+def test_cut_row_numbers_are_the_baseline_records(name):
+    """The JAX test MAE is the one BASELINE.md states for the record and
+    the one its log prints at the best-val epoch; the limit is 1.5 x it
+    (the rows' quality rule), to the fifth decimal."""
+    _, mae, best, limit = CUT[name]
+    record = RECORDS[name]
+    text = open(os.path.join(ROOT, "BASELINE.md")).read()
+    para = next(p for p in text.split("\n\n")
+                if f"results_archive/{record}/" in p)
+    assert re.search(rf"best test MAE\s+{mae:.5f}\s+raw", para), para
+    starred = [ln for ln in _epoch_lines(record) if ln.rstrip().endswith(
+        "*") or " * (" in ln]
+    assert re.match(rf"epoch {best:03d} .* test MAE {mae:.5f} \*",
+                    starred[-1]), starred[-1]
+    assert abs(limit - 1.5 * mae) <= 5e-6
 
 
 def test_seed_env_tags_each_row(tmp_path, rows):
@@ -192,3 +253,17 @@ def test_seed_env_tags_each_row(tmp_path, rows):
         assert argv[-2:] == [flag, "2"]
         assert argv[:-2] == [a.replace(f"/{name}_res", f"/{name}_s2_res")
                              for a in rows[name][1]]
+
+
+def test_init_env_starts_a_row_from_the_jax_weights(tmp_path, rows):
+    """`INIT=npz` runs a driver row through `carry_jax_init.py run` with
+    the row's own flags, its log and results tagged `_jaxinit` (then the
+    seed's tag)."""
+    started = run_script(str(tmp_path), "count_ppgn", seed=1,
+                         init="chip_archive/init_s1.npz")
+    module, argv = started["count_ppgn"]
+    assert module == rows["count_ppgn"][0]
+    assert argv[-2:] == ["--seed", "1"]
+    assert argv[:-2] == [a.replace("/count_ppgn_res",
+                                   "/count_ppgn_jaxinit_s1_res")
+                         for a in rows["count_ppgn"][1]]

@@ -37,23 +37,36 @@ class _Stop(Exception):
     pass
 
 
-def dump(path: str, driver: str, flags: list) -> None:
-    """Run the JAX driver until its model is initialised; save the
-    variables."""
+def load_jax_driver(driver: str):
+    """The repository's JAX `<driver>.py` as a fresh module on the CPU,
+    its compile cache set-up (`setup_jax`, run at import) skipped."""
     sys.path.insert(0, ROOT)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import flax.linen as nn
-
     import escgnn_tpu.utils
 
     spec = importlib.util.spec_from_file_location(
         f"_jax_{driver}", os.path.join(ROOT, f"{driver}.py"))
     mod = importlib.util.module_from_spec(spec)
-    setup_jax, argv, original = (escgnn_tpu.utils.setup_jax, sys.argv,
-                                 nn.Module.init)
+    setup_jax = escgnn_tpu.utils.setup_jax
+    escgnn_tpu.utils.setup_jax = lambda *a, **k: None
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        escgnn_tpu.utils.setup_jax = setup_jax
+    return mod
+
+
+def dump(path: str, driver: str, flags: list) -> None:
+    """Run the JAX driver until its model is initialised; save the
+    variables."""
+    mod = load_jax_driver(driver)
+    import jax
+    import flax.linen as nn
+
+    argv, original = sys.argv, nn.Module.init
     captured = {}
 
     def init(self, *args, **kwargs):
@@ -61,17 +74,14 @@ def dump(path: str, driver: str, flags: list) -> None:
             np.asarray, original(self, *args, **kwargs))
         raise _Stop
 
-    escgnn_tpu.utils.setup_jax = lambda *a, **k: None  # no compile cache
     nn.Module.init = init
     sys.argv = [f"{driver}.py", *flags, "--num_workers", "0"]
     try:
-        spec.loader.exec_module(mod)
         mod.main()
     except _Stop:
         pass
     finally:
-        escgnn_tpu.utils.setup_jax, sys.argv, nn.Module.init = (
-            setup_jax, argv, original)
+        sys.argv, nn.Module.init = argv, original
     flat = {}
     for group, tree in captured["variables"].items():
         for keys, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:

@@ -28,7 +28,10 @@
 # results/torch_quality); its last two lines and its wall seconds are
 # printed. With SEED=<n> in the environment every row runs at seed n
 # (`--seed n`; `seed n` for GPS) into <out_dir>/<name>_s<n>.log and
-# <name>_s<n>_res. Exits non-zero if any run failed.
+# <name>_s<n>_res. With INIT=<npz> (`tools/carry_jax_init.py dump` of
+# the JAX driver at the row's flags and seed) a driver row starts from
+# those weights (`tools/carry_jax_init.py run`) and its log and results
+# get `_jaxinit` before the seed tag. Exits non-zero if any run failed.
 set -uo pipefail
 out=${1:-results/torch_quality}
 only=" ${*:2} "
@@ -36,7 +39,8 @@ mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
 seed=${SEED:-}
-tag=${seed:+_s$seed}
+init=${INIT:-}
+tag=${init:+_jaxinit}${seed:+_s$seed}
 run() {
     local name=$1
     shift
@@ -52,7 +56,12 @@ run() {
             extra=(--seed "$seed")
         fi
     fi
-    if ! python3 -m "$@" "${extra[@]}" > "$out/$name$tag.log" 2>&1; then
+    local cmd=(-m "$@")
+    if [[ -n "$init" ]]; then
+        cmd=(tools/carry_jax_init.py run "$init" "${1#escgnn_tpu_torch.}"
+             -- "${@:2}")
+    fi
+    if ! python3 "${cmd[@]}" "${extra[@]}" > "$out/$name$tag.log" 2>&1; then
         echo "$name FAILED"
         status=1
     fi
@@ -113,4 +122,16 @@ run count_ppgn escgnn_tpu_torch.run_graphcount --model PPGN_eff --target 0 \
     --h 3 --batch_size 128 --lr 5e-3 --epochs 800 --num_graphs 1500 \
     --num_workers 2 --res_dir "$out/count_ppgn${tag}_res" \
     --data_dir "$out/count_data"
+clip() {
+    local name=$1
+    shift
+    run "$name" escgnn_tpu_torch.run_graphcount "$@" --batch_size 128 \
+        --lr 2e-3 --lr_decay_factor 0.7 --patience 20 --grad_clip 1.0 \
+        --num_graphs 5000 --num_workers 2 --res_dir "$out/${name}${tag}_res" \
+        --data_dir "$out/${name}_data"
+}
+clip count_ppgn_clip_t0 --model PPGN_eff --target 0 --h 3 --epochs 487
+clip count_ppgn_clip_t1 --model PPGN_eff --target 1 --h 3 --epochs 858
+clip cgra_ppgn_clip_t0 --dataset count_graphlet --model PPGN_eff --target 0 \
+    --h 1 --epochs 800
 exit $status
