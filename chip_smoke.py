@@ -163,6 +163,8 @@ import time
 
 import torch
 
+from escgnn_tpu_torch.utils import trace
+
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1039,7 +1041,7 @@ def run_ppgn(batch, spec, real_edges, dev):
     eval step, then one default-impl step from the same initial state.
     Returns the kernels' launches on the main path."""
     from escgnn_tpu_torch.models.ppgn import PPGN
-    from escgnn_tpu_torch.ops import ppgn_pool, zemb, zemb_gather
+    from escgnn_tpu_torch.ops import zemb
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
         eval_step,
@@ -1054,20 +1056,19 @@ def run_ppgn(batch, spec, real_edges, dev):
     opt = adam_with_plateau(model.parameters(), LR)
     zemb.set_impl("pallas")
     try:
-        zemb_gather.launches = 0
-        ppgn_pool.launches = 0
+        trace.reset("k3.launches", "k4.launches")
         losses, step_ms = [], []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             losses.append(train_step(model, opt, batch, l1_node_loss))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {"k3": zemb_gather.launches, "k4": ppgn_pool.launches}
-        zemb_gather.launches = 0
-        ppgn_pool.launches = 0
+        launches = {k: trace.counter(k + ".launches") for k in ("k3", "k4")}
+        trace.reset("k3.launches", "k4.launches")
         err_sum, count = eval_step(model, batch, node_level=True)
         torch.cuda.synchronize()
-        eval_launches = {"k3": zemb_gather.launches, "k4": ppgn_pool.launches}
+        eval_launches = {k: trace.counter(k + ".launches")
+                         for k in ("k3", "k4")}
         with torch.no_grad():
             out = model.eval()(batch)
         torch.cuda.synchronize()
@@ -1102,14 +1103,13 @@ def run_ppgn(batch, spec, real_edges, dev):
     # kernel path's first loss was taken from that state too
     m_def = PPGN(ppgn_config(N, "xla"), device=dev)
     m_def.load_state_dict(init_state)
-    zemb_gather.launches = 0
-    ppgn_pool.launches = 0
+    trace.reset("k3.launches", "k4.launches")
     t0 = time.perf_counter()
     loss_def = float(train_step(m_def, adam_with_plateau(m_def.parameters(), LR),
                                 batch, l1_node_loss))
     torch.cuda.synchronize()
     def_ms = (time.perf_counter() - t0) * 1e3
-    if zemb_gather.launches or ppgn_pool.launches:
+    if trace.counter("k3.launches") or trace.counter("k4.launches"):
         raise AssertionError("the default impls launched K3 or K4")
     # the bf16 blocks can round an f32 difference of the z reduce (summed
     # in another order) the other way
@@ -1159,16 +1159,15 @@ def run_zinc_twin(work: str, smi: str):
     warm-up steps and the capture only; `[pool_graph]` counts its launches
     in a graphed epoch with the profiler. Returns the run's result."""
     from escgnn_tpu_torch import run_zinc
-    from escgnn_tpu_torch.ops import expand_cuda
 
     argv = ["--num_graphs", "1000", "--epochs", "3", "--num_workers", "2",
             "--data_dir", os.path.join(work, "data"),
             "--res_dir", os.path.join(work, "zinc")]
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     t0 = time.perf_counter()
     res = run_zinc.main(argv)
     seconds = time.perf_counter() - t0
-    k1_wrapper = expand_cuda.launches
+    k1_wrapper = trace.counter("k1.launches")
     _check_epochs("run_zinc", res, steps=7)
     if k1_wrapper < 1:
         raise AssertionError("run_zinc did not launch K1")
@@ -1250,15 +1249,13 @@ def check_pool_graph(twin: str, model, loss_fn, train, spec, lr, dev,
     g_losses, g_ms = timed(lambda: graphed(pool, order).tolist())
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    from escgnn_tpu_torch.ops import expand_cuda
-
     model.load_state_dict(init)
     opt_e = adam_with_plateau(model.parameters(), lr, capturable=True)
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     e_losses, e_ms = timed(lambda: torch.stack([
         train_step(model, opt_e, pool_entry(pool, int(j)), loss_fn)
         for j in order]).tolist())
-    k1_eager = expand_cuda.launches
+    k1_eager = trace.counter("k1.launches")
     if kernel is not None and kernel[0] == "k1" and per_step is None:
         per_step = k1_eager // steps
         if k1_eager != per_step * steps or per_step < k1_min:
@@ -1368,7 +1365,6 @@ def run_graphcount_twin(work: str, smi: str):
     )
     from escgnn_tpu_torch.data.prefetch import stack_split
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
-    from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.train.checkpoint import (
         CheckpointManager,
         load_model_tree,
@@ -1379,11 +1375,11 @@ def run_graphcount_twin(work: str, smi: str):
     data = os.path.join(work, "data")
     base = ["--num_graphs", "400", "--data_dir", data]
     cold_dir = os.path.join(work, "count_cold")
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     t0 = time.perf_counter()
     cold = rg.main(base + ["--epochs", "3", "--res_dir", cold_dir])
     cold_s = time.perf_counter() - t0
-    k1_wrapper = expand_cuda.launches
+    k1_wrapper = trace.counter("k1.launches")
     _check_epochs("run_graphcount", cold, steps=3)
     if k1_wrapper < 1:
         raise AssertionError("run_graphcount did not launch K1")
@@ -1574,10 +1570,11 @@ def check_k1_width300(batch, dev):
             raise AssertionError(f"K1 {name}: not deterministic")
         if unnamed.any() and got[unnamed].abs().max().item() != 0:
             raise AssertionError(f"K1 {name}: a row no id names is not 0")
-    before = expand_cuda.launches
+    before = trace.counter("k1.launches")
     profiled_events = _device_kernels(
         lambda: expand_cuda.sorted_segment_sum(f32, perm, rows, R))
-    per_call = (expand_cuda.launches - before) / 2  # a warm call, then one
+    # a warm call, then one
+    per_call = (trace.counter("k1.launches") - before) / 2
     if per_call != 1:
         raise AssertionError(f"K1 launched {per_call} times in one call")
     ms = _cuda_ms(lambda: expand_cuda.sorted_segment_sum(f32, perm, rows, R))
@@ -1779,17 +1776,16 @@ def run_ogb_mol_twin(work: str, smi: str, dev):
     K1's launches in one graphed epoch at the twin's defaults."""
     from escgnn_tpu_torch import run_ogb_mol
     from escgnn_tpu_torch.data.batching import pad_and_batch
-    from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.train.loop import bce_graph_loss
 
     argv = ["--num_graphs", "640", "--epochs", "3", "--synth_label", "tri",
             "--num_workers", "2", "--data_dir", os.path.join(work, "data"),
             "--res_dir", os.path.join(work, "ogb")]
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     t0 = time.perf_counter()
     res = run_ogb_mol.main(argv)
     seconds = time.perf_counter() - t0
-    k1_wrapper = expand_cuda.launches
+    k1_wrapper = trace.counter("k1.launches")
     eps = res["epochs"]
     losses, vals = [e["loss"] for e in eps], [e["val"] for e in eps]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
@@ -2635,7 +2631,6 @@ def run_gps_bench(shape: str, dev, reps: int):
     (E, dim_h). Returns (K1's launches in the graphed epoch, K1's
     numbers at this shape)."""
     from escgnn_tpu_torch import bench
-    from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
         l1_graph_loss,
@@ -2653,12 +2648,12 @@ def run_gps_bench(shape: str, dev, reps: int):
     # eager launches of K1 per step: the bench line's count (per layer the
     # z expansion's backward and the attention grid's gather, and the
     # embedding lookups)
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     train_step(copy.deepcopy(model),
                adam_with_plateau(model.parameters(), LR), batch,
                l1_graph_loss)
     torch.cuda.synchronize()
-    eager = expand_cuda.launches
+    eager = trace.counter("k1.launches")
     want = BENCH_K1_NODES["gps" if shape == "zinc" else "gps_pep"]
     if eager != want:
         raise AssertionError(f"{label}: K1 ran {eager} times in an eager "
@@ -3304,11 +3299,11 @@ def run_csl_twin(smi: str, dev):
         # the fold under the ledger and the profiler; the wrapper counts
         # the captured launch, which runs nothing
         ledger = _GraphLedger()
-        zemb_gather.launches = 0
+        trace.reset("k3.launches")
         with ledger.watch():
             fold, prof = _profiled(
                 lambda: run_csl.run_fold(args, feats, folds, 0, spec, dev))
-        eager = zemb_gather.launches - ledger.nodes("zemb_rows_kernel")
+        eager = trace.counter("k3.launches") - ledger.nodes("zemb_rows_kernel")
         graphed = ledger.launches("zemb_rows_kernel")
         seen = _kernel_events(prof, "zemb_rows_kernel") - eager
         want = args.epochs * fold["steps"]
@@ -3813,7 +3808,6 @@ def mesh_rank_main(rank: int, out_dir: str) -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.parallel import data_parallel as dpm
     from escgnn_tpu_torch.parallel import edge_partition as ep
     from escgnn_tpu_torch.parallel import halo
@@ -3837,9 +3831,9 @@ def mesh_rank_main(rank: int, out_dir: str) -> int:
         model = _zinc_model(dev)
         opt = torch.optim.SGD(model.parameters(), lr=1e-2)
         step = make_step(model, opt, mesh)
-        expand_cuda.launches = 0
+        trace.reset("k1.launches")
         loss = float(step(batch))
-        res[mode] = (loss, _grads(model), expand_cuda.launches)
+        res[mode] = (loss, _grads(model), trace.counter("k1.launches"))
         res[mode + "_seconds"] = round(time.perf_counter() - t, 3)
 
     mesh = make_mesh(0, ("model",), device=dev)
@@ -4373,7 +4367,6 @@ def run_bench(dev, smi) -> dict:
     import io
 
     from escgnn_tpu_torch import bench
-    from escgnn_tpu_torch.ops import expand_cuda
 
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -4392,7 +4385,7 @@ def run_bench(dev, smi) -> dict:
         return res
 
     bench.count_cost = count_with_matmuls
-    expand_cuda.launches = 0
+    trace.reset("k1.launches")
     t0 = time.perf_counter()
     try:
         with ledger.watch(), contextlib.redirect_stdout(out):
@@ -4402,7 +4395,7 @@ def run_bench(dev, smi) -> dict:
         bench.count_cost = count_cost
         os.environ.update({k: v for k, v in saved.items() if v is not None})
     seconds = time.perf_counter() - t0
-    eager_k1 = expand_cuda.launches
+    eager_k1 = trace.counter("k1.launches")
     printed = [json.loads(ln) for ln in out.getvalue().splitlines()]
     if [p["metric"] for p in printed] != list(bench.METRICS):
         raise AssertionError(f"bench: printed {[p.get('metric') for p in printed]}"
@@ -4540,7 +4533,6 @@ def run_determinism(dev, smi) -> dict:
     if tools not in sys.path:
         sys.path.insert(0, tools)
     import determinism_probe as probe
-    from escgnn_tpu_torch.ops import expand_cuda
     from escgnn_tpu_torch.train.loop import adam_with_plateau, train_step
 
     t0 = time.perf_counter()
@@ -4559,7 +4551,7 @@ def run_determinism(dev, smi) -> dict:
         model = case.make_model()
         opt = adam_with_plateau(model.parameters(), case.lr)
         train_step(model, opt, case.batches[0], case.loss_fn)
-        expand_cuda.launches = 0
+        trace.reset("k1.launches")
         _, prof = _profiled(lambda: train_step(model, opt, case.batches[0],
                                                case.loss_fn))
         ms = lambda part: sum(  # noqa: E731
@@ -4567,7 +4559,7 @@ def run_determinism(dev, smi) -> dict:
         ) / 1e3
         steps[name] = dict(
             loss=eager["losses"][0], graphed=first,
-            k1_per_step=expand_cuda.launches, busy_ms=_busy_ms(prof),
+            k1_per_step=trace.counter("k1.launches"), busy_ms=_busy_ms(prof),
             k1_ms=ms(K1_SYMBOL), sort_ms=ms("Sort") + ms("sort"),
             kernels=_kernel_events(prof))
     sums, slower = {}, []
@@ -4609,7 +4601,7 @@ def main() -> int:
     from escgnn_tpu_torch.data.molecules import synthetic_zinc
     from escgnn_tpu_torch.featurize import EscConfig, featurize_many
     from escgnn_tpu_torch.models.nested_gin_eff import NestedGINEff
-    from escgnn_tpu_torch.ops import expand_cuda, zemb, zemb_cuda
+    from escgnn_tpu_torch.ops import zemb
     from escgnn_tpu_torch.train.loop import (
         adam_with_plateau,
         eval_step,
@@ -4668,16 +4660,15 @@ def main() -> int:
                          generator=torch.Generator().manual_seed(0))
     opt = adam_with_plateau(model.parameters(), LR)
     init_state = copy.deepcopy(model.state_dict())
-    expand_cuda.launches = 0
-    zemb_cuda.launches = 0
+    trace.reset("k1.launches", "k2.launches")
     losses, step_ms, k1_steps = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        k1_before = expand_cuda.launches
+        k1_before = trace.counter("k1.launches")
         losses.append(train_step(model, opt, batch, l1_graph_loss))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1_steps.append(expand_cuda.launches - k1_before)
+        k1_steps.append(trace.counter("k1.launches") - k1_before)
     err_sum, count = eval_step(model, batch, node_level=False)
     with torch.no_grad():
         out = model.eval()(batch)
@@ -4685,7 +4676,7 @@ def main() -> int:
     if tuple(out.shape) != (NUM_GRAPHS, 1) or not torch.isfinite(out).all():
         raise AssertionError(f"eval output {tuple(out.shape)} is not a "
                              f"finite ({NUM_GRAPHS}, 1) tensor")
-    main_launches = {"k1": expand_cuda.launches, "k2": zemb_cuda.launches}
+    main_launches = {k: trace.counter(k + ".launches") for k in ("k1", "k2")}
     losses = [float(v) for v in losses]
     mae = float(err_sum) / float(count)
     if not all(math.isfinite(v) for v in losses) or not math.isfinite(mae):
@@ -4715,14 +4706,13 @@ def main() -> int:
     batch_k2 = dataclasses.replace(batch, enc_countmat=None)
     zemb.set_impl("countmat_pallas")
     try:
-        expand_cuda.launches = 0
-        zemb_cuda.launches = 0
+        trace.reset("k1.launches", "k2.launches")
         t0 = time.perf_counter()
         loss_k2 = float(train_step(m_k2, adam_with_plateau(m_k2.parameters(), LR),
                                    batch_k2, l1_graph_loss))
         torch.cuda.synchronize()
         k2_step_ms = (time.perf_counter() - t0) * 1e3
-        k2_launches = {"k1": expand_cuda.launches, "k2": zemb_cuda.launches}
+        k2_launches = {k: trace.counter(k + ".launches") for k in ("k1", "k2")}
     finally:
         zemb.set_impl("countmat")
     if k2_launches["k2"] < 1:

@@ -32,6 +32,7 @@ import torch
 
 from escgnn_tpu_torch.data.container import EXTRAS_PREFIX, GraphBatch, GraphData
 from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.utils import trace
 
 # extras that the JAX batcher folds into dedicated fields and budgets
 _STRUCTURAL_KEYS = frozenset({
@@ -222,11 +223,14 @@ def _check_layout(graphs, enc_layout):
 def _spec_budgets(graphs, batch_size, enc_layout):
     _check_layout(graphs, enc_layout)
     bs = int(batch_size)
-    mx = _per_graph_maxima(graphs)
-    if enc_layout == "dedup":
-        mx["enc_buckets"] = _distinct_bucket_budget(graphs)
-        mx["enc_rows_cap"] = _distinct_row_cap(graphs)
-        mx["enc_rows_topk"] = _topk_row_sum(graphs, bs)
+    # the sizing pass over every graph (its row hashes take seconds on a
+    # dataset), for each batch spec built from graphs
+    with trace.span("pools.size"):
+        mx = _per_graph_maxima(graphs)
+        if enc_layout == "dedup":
+            mx["enc_buckets"] = _distinct_bucket_budget(graphs)
+            mx["enc_rows_cap"] = _distinct_row_cap(graphs)
+            mx["enc_rows_topk"] = _topk_row_sum(graphs, bs)
     return _budgets_from(mx, scale=bs, enc_layout=enc_layout), bs, mx
 
 

@@ -43,6 +43,7 @@ from escgnn_tpu_torch.data.batching import (
 )
 from escgnn_tpu_torch.data.container import GraphBatch, GraphData
 from escgnn_tpu_torch.device import resolve_device
+from escgnn_tpu_torch.utils import trace
 
 _SENTINEL = object()
 
@@ -99,6 +100,18 @@ def _host_batches(graphs, spec: BatchSpec, batch_transform=None) -> list:
            for a in batch_iterator(graphs, spec, device=None)]
     return out if batch_transform is None else [batch_transform(b)
                                                 for b in out]
+
+
+def _upload(host: GraphBatch, device) -> GraphBatch:
+    """`host` copied to `device` and waited for, under the `pools.upload`
+    span (set-up only: the wait must stay off every step path)."""
+    device = resolve_device(device)
+    trace.count("pools.bytes", _nbytes(host))
+    with trace.span("pools.upload"):
+        out = host.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return out
 
 
 def stack_batches(batches: list) -> GraphBatch:
@@ -168,8 +181,9 @@ def stack_split(graphs: Sequence[GraphData], spec: BatchSpec,
     """Pad a fixed split once and stack its batches along a new leading
     axis on `device`: each eval or refresh pass over it then reads the
     card only. Every transformed batch must have one shape."""
-    return stack_batches(_host_batches(graphs, spec, batch_transform)).to(
-        device)
+    with trace.span("pools.pad"):
+        host = stack_batches(_host_batches(graphs, spec, batch_transform))
+    return _upload(host, device)
 
 
 def pool_size(stacked: GraphBatch) -> int:
@@ -190,9 +204,10 @@ def stack_split_compressed(graphs: Sequence[GraphData], spec: BatchSpec,
     pool."""
     from escgnn_tpu_torch.data.compress import compress_tree, make_decoder
 
-    host, metas = compress_tree(
-        stack_batches(_host_batches(graphs, spec, batch_transform)))
-    return host.to(device), make_decoder(metas)
+    with trace.span("pools.pad"):
+        host, metas = compress_tree(
+            stack_batches(_host_batches(graphs, spec, batch_transform)))
+    return _upload(host, device), make_decoder(metas)
 
 
 def _identity(batch: GraphBatch) -> GraphBatch:
@@ -239,16 +254,18 @@ def stacked_batch_pools(
     first = None
     kk = max(1, k)
     while len(pools) < kk:
-        shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
-        host = stack_batches(_host_batches(shuffled, spec, batch_transform))
-        if compress:
-            if first is None:
-                host, metas = compress_tree(host)
-                decode = make_decoder(metas)
-                first = host
-            else:
-                # one decoder and one captured step for every pool
-                host = compress_tree_like(host, first)
+        with trace.span("pools.pad"):
+            shuffled = [graphs[int(j)] for j in rng.permutation(len(graphs))]
+            host = stack_batches(_host_batches(shuffled, spec,
+                                               batch_transform))
+            if compress:
+                if first is None:
+                    host, metas = compress_tree(host)
+                    decode = make_decoder(metas)
+                    first = host
+                else:
+                    # one decoder and one captured step for every pool
+                    host = compress_tree_like(host, first)
         if not pools:
             per_pool = _nbytes(host)
             fit = max(1, int(max_total_bytes // max(per_pool, 1)))
@@ -257,7 +274,7 @@ def stacked_batch_pools(
                       f"({per_pool / 2**20:.0f} MB per pool, "
                       f"budget {max_total_bytes / 2**30:.1f} GB)")
                 kk = fit
-        pools.append(host.to(device))
+        pools.append(_upload(host, device))
     num_batches = (len(graphs) + spec.num_graphs - 1) // spec.num_graphs
     return pools, num_batches, decode
 

@@ -17,6 +17,7 @@ import numpy as np
 from escgnn_tpu_torch.data.container import GraphData
 from escgnn_tpu_torch.featurize.escgnn import EscConfig, esc_encode
 from escgnn_tpu_torch.native.escfeat import esc_encode_native, set_num_threads
+from escgnn_tpu_torch.utils import trace
 
 
 def esc_transform(
@@ -85,11 +86,13 @@ def featurize_many(
         never touch CUDA: the workers run numpy and the native core only.
     Start no threads of your own before featurizing."""
     fn = partial(esc_transform, cfg=cfg, self_loop_fill=self_loop_fill)
-    if num_workers and num_workers > 1 and len(graphs) > 8:
-        with mp.get_context("fork").Pool(num_workers,
-                                         initializer=_one_thread) as pool:
-            return pool.map(fn, graphs, chunksize=32)
-    return [fn(g) for g in graphs]
+    trace.count("featurize.graphs", len(graphs))
+    with trace.span("featurize"):
+        if num_workers and num_workers > 1 and len(graphs) > 8:
+            with mp.get_context("fork").Pool(
+                    num_workers, initializer=_one_thread) as pool:
+                return pool.map(fn, graphs, chunksize=32)
+        return [fn(g) for g in graphs]
 
 
 def _one_thread() -> None:

@@ -24,6 +24,7 @@ wider tensor, is not copied.
 `sorted_segment_sum` launches the kernel for CUDA tensors and takes the
 plain PyTorch version only for CPU tensors. Either way it charges one call
 to an active `utils/cost.py` `CostMode` (`segsum_cost`).
+Each launch counts under `k1.launches` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -34,10 +35,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
-from escgnn_tpu_torch.utils import cost
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
+from escgnn_tpu_torch.utils import cost, trace
 
 # constants of csrc/expand_segsum.cu
 POS_WEIGHT = 2    # merge-path items a sorted position weighs (a row end 1)
@@ -195,6 +193,5 @@ def _sorted_segment_sum(dZ, perm, rows_sorted, num_rows: int):
             _counters(dZ.device, num_rows).data_ptr(),
             torch.cuda.current_stream(dZ.device).cuda_stream)
     _build.check(rc, "expand_segsum")
-    global launches
-    launches += 1
+    trace.count("k1.launches")
     return out

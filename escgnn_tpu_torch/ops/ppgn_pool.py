@@ -16,6 +16,7 @@ on the diagonal, in x's dtype.
 plain PyTorch version only for CPU tensors. Either way its forward charges
 one call to an active `utils/cost.py` `CostMode` (`pool_cost`); the
 backward is counted op by op.
+Each launch counts under `k4.launches` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -23,10 +24,7 @@ from __future__ import annotations
 import torch
 
 from escgnn_tpu_torch import _build
-from escgnn_tpu_torch.utils import cost
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
+from escgnn_tpu_torch.utils import cost, trace
 
 
 def diag_row_col_pool_plain(x):
@@ -76,8 +74,7 @@ def _pool_kernel(x):
     rc = fn(x.data_ptr(), G, N, C, out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ppgn_pool")
-    global launches
-    launches += 1
+    trace.count("k4.launches")
     return out
 
 

@@ -12,6 +12,7 @@ makes the table backward one matmul, dT = C^T @ dU.
 `zemb_countmat` launches the kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors. Either way it charges one call to an
 active `utils/cost.py` `CostMode` (`countmat_cost`).
+Each launch counts under `k2.launches` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -20,10 +21,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
-from escgnn_tpu_torch.utils import cost
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
+from escgnn_tpu_torch.utils import cost, trace
 
 
 def count_matrix(enc_idx, enc_cnt, num_buckets: int):
@@ -83,6 +81,5 @@ def _zemb_countmat(table, enc_idx, enc_cnt):
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(rc, "zemb_countmat")
-    global launches
-    launches += 1
+    trace.count("k2.launches")
     return z, C

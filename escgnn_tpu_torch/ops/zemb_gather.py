@@ -16,6 +16,7 @@ count-matrix product in `ops/zemb.py`.
 `zemb_gather` launches the kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors. Either way it charges one call to an
 active `utils/cost.py` `CostMode` (`gather_cost`).
+Each launch counts under `k3.launches` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -24,10 +25,7 @@ import torch
 
 from escgnn_tpu_torch import _build
 from escgnn_tpu_torch.ops import smem_plan
-from escgnn_tpu_torch.utils import cost
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
+from escgnn_tpu_torch.utils import cost, trace
 
 
 def zemb_gather_plain(table, enc_idx, enc_cnt):
@@ -76,6 +74,5 @@ def _zemb_gather(table, enc_idx, enc_cnt):
         out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(rc, "zemb_gather")
-    global launches
-    launches += 1
+    trace.count("k3.launches")
     return out

@@ -47,6 +47,7 @@ from escgnn_tpu_torch.data.container import GraphBatch
 from escgnn_tpu_torch.data.prefetch import pool_entry, pool_size
 from escgnn_tpu_torch.models.layers import bn_statistics, set_use_running_average
 from escgnn_tpu_torch.ops.segment import sorted_views
+from escgnn_tpu_torch.utils import trace
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -308,7 +309,10 @@ def make_bn_refresh_step(model: torch.nn.Module):
     def refresh(base_stats: dict, batch: GraphBatch) -> dict:
         with _batch_statistics(model), sorted_views():
             load_bn_stats(model, base_stats)
-            model(batch)
+            # the batch-statistics forward alone; the statistics' copies
+            # around it fall to the enclosing `refresh` span
+            with trace.span("refresh.forward"):
+                model(batch)
             return bn_stats(model)
 
     return refresh
@@ -345,7 +349,9 @@ def make_pool_refresh_step(model: torch.nn.Module, decode=None):
     step = make_bn_refresh_step(model)
 
     def refresh(stacked: GraphBatch) -> None:
-        refresh_bn_stats(step, model, _pool_batches(stacked, decode))
+        # the whole refresh: forwards, statistics handling, host enqueueing
+        with trace.span("refresh"):
+            refresh_bn_stats(step, model, _pool_batches(stacked, decode))
 
     return refresh
 
@@ -371,7 +377,8 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
     if bn_mode not in _BN_MODES:
         raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
     with (_batch_statistics(model) if bn_mode == "batch"
-          else running_statistics(model)), sorted_views():
+          else running_statistics(model)), sorted_views(), \
+            trace.span("eval.forward"):  # the model call alone
         out = model(batch)
     if segment_level:
         mask, y = batch.segment_mask, batch.extras["y_seg"]
@@ -391,10 +398,13 @@ def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
 
     def eval_pool(stacked: GraphBatch):
         total = count = None
-        for b in _pool_batches(stacked, decode):
-            s, c = eval_step(model, b, node_level, bn_mode, segment_level)
-            total = s if total is None else total + s
-            count = c if count is None else count + c
+        # every batch's forward and error sums, enqueued; no wait
+        with trace.span("eval"):
+            for b in _pool_batches(stacked, decode):
+                s, c = eval_step(model, b, node_level, bn_mode,
+                                 segment_level)
+                total = s if total is None else total + s
+                count = c if count is None else count + c
         return total, count
 
     return eval_pool
@@ -520,6 +530,21 @@ class _PoolBuffers:
         for k, dst in self.static.tensors().items():
             dst.copy_(src[k][j])
 
+    def steps(self, pool: GraphBatch, order, run) -> None:
+        """For the i-th batch j of `order`: load pool entry j into the
+        buffers, then `run(i)`. On the card the host runs about four steps
+        ahead, so the spans time the enqueueing and its waits on a full
+        launch queue (mostly inside a replay's launch), not device work."""
+        self.check(pool)
+        for i, j in enumerate(order):
+            with trace.span("pool_step.load"):  # the batch copies
+                self.load(pool, int(j))
+            with trace.span("pool_step.run"):  # the step, replayed or eager
+                run(i)
+        trace.count("pool_step.steps", len(order))
+        trace.count("pool_step.copies",
+                    len(order) * len(self.static.tensors()))
+
     def check(self, pool: GraphBatch) -> None:
         want = {k: (tuple(v.shape), v.dtype, v.device)
                 for k, v in self.static.tensors().items()}
@@ -546,12 +571,11 @@ class _EagerPoolStep(_PoolBuffers):
         self.step_fn = step_fn
 
     def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
-        self.check(pool)
-        losses = []
-        for j in order:
-            self.load(pool, int(j))
-            losses.append(self.step_fn(self.static))
-        return torch.stack(losses)
+        with trace.span("pool_step"):  # the whole call
+            losses = []
+            self.steps(pool, order,
+                       lambda i: losses.append(self.step_fn(self.static)))
+            return torch.stack(losses)
 
 
 class _GraphedPoolStep(_PoolBuffers):
@@ -590,14 +614,16 @@ class _GraphedPoolStep(_PoolBuffers):
             self._loss = step_fn(self.static)
 
     def __call__(self, pool: GraphBatch, order) -> torch.Tensor:
-        self.check(pool)
-        losses = torch.empty(len(order), dtype=self._loss.dtype,
-                             device=self.device)
-        for i, j in enumerate(order):
-            self.load(pool, int(j))
-            self.graph.replay()
-            losses[i].copy_(self._loss)
-        return losses
+        with trace.span("pool_step"):  # the whole call
+            losses = torch.empty(len(order), dtype=self._loss.dtype,
+                                 device=self.device)
+
+            def run(i):  # the replay and the loss's copy
+                self.graph.replay()
+                losses[i].copy_(self._loss)
+
+            self.steps(pool, order, run)
+            return losses
 
 
 def _snapshot(model, opt) -> dict:

@@ -29,6 +29,7 @@ from escgnn_tpu_torch.featurize import EscConfig, featurize_many
 from escgnn_tpu_torch.ops import expand_cuda, zemb, zemb_cuda
 from escgnn_tpu_torch.ops.embed import embed_take
 from escgnn_tpu_torch.ops.segment import pool_nodes_to_graphs, segment_sum
+from escgnn_tpu_torch.utils import trace
 
 H = 16
 
@@ -62,9 +63,12 @@ def batches():
 @pytest.fixture(autouse=True)
 def _counters_stay_zero():
     """On CPU tensors no wrapper launches its kernel."""
-    k1, k2 = expand_cuda.launches, zemb_cuda.launches
+    def launches():
+        return trace.counter("k1.launches"), trace.counter("k2.launches")
+
+    k1, k2 = launches()
     yield
-    assert (expand_cuda.launches, zemb_cuda.launches) == (k1, k2) == (0, 0)
+    assert launches() == (k1, k2) == (0, 0)
 
 
 def test_k1_plain_vs_pallas_interpret_and_exact(batches):
