@@ -305,16 +305,23 @@ class _GraphLedger:
     replays are its nodes times the replays. The profiler cannot count
     them: on torch 2.11.0+cu128 it drops device records, and it read 2
     launches of a kernel in 3 replays of one graph in three profiles in a
-    row (PERF.md §7)."""
+    row (PERF.md §7). A graph captured by the forward-only pool eval or
+    BN refresh (`train/loop.py` `_ForwardGraph`) is marked in `forward`,
+    so a count can keep to the train steps' graphs."""
 
     def __init__(self):
         self.dots: list[str] = []
         self.replays: list[int] = []
+        self.forward: list[bool] = []
 
     @contextlib.contextmanager
     def watch(self):
+        from escgnn_tpu_torch.train import loop
+
         cls = torch.cuda.CUDAGraph
         orig = {n: getattr(cls, n) for n in ("capture_end", "replay")}
+        forward_init = loop._ForwardGraph.__init__
+        in_forward = []
         ledger = self
 
         def capture_end(g):
@@ -327,6 +334,14 @@ class _GraphLedger:
             g._ledger_index = len(ledger.dots)
             ledger.dots.append(dot)
             ledger.replays.append(0)
+            ledger.forward.append(bool(in_forward))
+
+        def forward_capture(g, *args, **kwargs):
+            in_forward.append(True)
+            try:
+                forward_init(g, *args, **kwargs)
+            finally:
+                in_forward.pop()
 
         def replay(g):
             orig["replay"](g)
@@ -337,11 +352,13 @@ class _GraphLedger:
             ledger.replays[i] += 1
 
         cls.capture_end, cls.replay = capture_end, replay
+        loop._ForwardGraph.__init__ = forward_capture
         try:
             yield self
         finally:
             for n, f in orig.items():
                 setattr(cls, n, f)
+            loop._ForwardGraph.__init__ = forward_init
 
     def clear_replays(self) -> None:
         self.replays = [0] * len(self.dots)
@@ -351,10 +368,13 @@ class _GraphLedger:
         with no symbol)."""
         return sum(_dot_nodes(d, symbol) for d in self.dots)
 
-    def launches(self, symbol: str) -> int:
-        """Launches of kernels named `symbol` in the replays counted."""
+    def launches(self, symbol: str, forward: bool | None = None) -> int:
+        """Launches of kernels named `symbol` in the replays counted: of
+        every graph, or with `forward` of the forward-only eval and
+        refresh graphs (True) or of the others (False)."""
         return sum(_dot_nodes(d, symbol) * n
-                   for d, n in zip(self.dots, self.replays))
+                   for i, (d, n) in enumerate(zip(self.dots, self.replays))
+                   if forward is None or self.forward[i] == forward)
 
 
 def _captured_kernels(fn, symbol: str) -> tuple:
@@ -3394,11 +3414,12 @@ def _step_losses(res):
 
 
 def _watched(fn):
-    """(fn(), K1's launches in the CUDA-graph replays made during it)."""
+    """(fn(), K1's launches in the train steps' CUDA-graph replays made
+    during it; the graphed pool eval and refresh replays left out)."""
     ledger = _GraphLedger()
     with ledger.watch():
         out = fn()
-    return out, ledger.launches(K1_SYMBOL)
+    return out, ledger.launches(K1_SYMBOL, forward=False)
 
 
 def _twin_train(work: str, twin: str, res):

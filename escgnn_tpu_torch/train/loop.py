@@ -15,14 +15,16 @@ model in place:
   * `eval_step` and `make_pool_eval_step`: (sum |err|, count) with the
     running BatchNorm statistics (`bn_mode="running"`) or the eval
     batch's own (`bn_mode="batch"`, running statistics left as they
-    were), the model in `eval()` either way;
+    were), the model in `eval()` either way; on a CUDA device the pool
+    eval replays one captured forward per batch (`_GraphedForwardPool`);
   * `make_accuracy_step` and `make_pergraph_correct_step`: classification
     eval with the running statistics, returning device tensors;
   * `make_pool_logits_step`: the logits of every batch of a stacked pool
     (graph or node rows) with the running statistics, for a metric
     computed on the host;
   * `refresh_bn_stats` and `make_pool_refresh_step`: the running
-    statistics re-estimated as the exact average of per-batch moments.
+    statistics re-estimated as the exact average of per-batch moments,
+    the pool refresh graphed on a CUDA device as the pool eval is.
 
 BatchNorm's statistics mode is set on its own (`models/layers.py`
 `set_use_running_average`, `bn_statistics`), apart from `model.training`:
@@ -249,10 +251,16 @@ BN_MOMENTUM = 0.9
 _STAT_NAMES = ("running_mean", "running_var")
 
 
+def _stat_buffers(model: torch.nn.Module) -> dict:
+    """Every BatchNorm running statistic of `model` (the buffers
+    themselves), by buffer name."""
+    return {k: v for k, v in model.named_buffers()
+            if k.rsplit(".", 1)[-1] in _STAT_NAMES}
+
+
 def bn_stats(model: torch.nn.Module) -> dict:
     """A copy of every BatchNorm running statistic, by buffer name."""
-    return {k: v.detach().clone() for k, v in model.named_buffers()
-            if k.rsplit(".", 1)[-1] in _STAT_NAMES}
+    return {k: v.detach().clone() for k, v in _stat_buffers(model).items()}
 
 
 def load_bn_stats(model: torch.nn.Module, stats: dict) -> None:
@@ -344,14 +352,47 @@ def _pool_batches(stacked: GraphBatch, decode=None):
 
 def make_pool_refresh_step(model: torch.nn.Module, decode=None):
     """`refresh(stacked)`: `refresh_bn_stats` over every batch of a
-    stacked pool (each through `decode` when given); eager and
-    forward-only."""
-    step = make_bn_refresh_step(model)
+    stacked pool (each through `decode` when given), forward-only.
 
+    On the CPU it runs eagerly. On a CUDA device one batch's refresh (the
+    base statistics copied into the buffers, the batch-statistics
+    forward, the batch's recovered moments added into static sums) is a
+    `_GraphedForwardPool` replayed per batch; the sums over the batch
+    count become the running statistics. The arithmetic and its order are
+    the eager path's (0 + x is exact)."""
+    step = make_bn_refresh_step(model)
+    base: dict = {}  # the base statistics the captured refresh reads
+
+    def body(batch: GraphBatch) -> list:
+        bufs = _stat_buffers(model)
+        for k, v in bufs.items():
+            v.copy_(base[k])
+        with sorted_views():
+            model(batch if decode is None else decode(batch))
+        return list(recover_batch_moments(bufs, base).values())
+
+    graphs = _GraphedForwardPool(model, body, "refresh", _batch_statistics)
+
+    @torch.no_grad()
     def refresh(stacked: GraphBatch) -> None:
-        # the whole refresh: forwards, statistics handling, host enqueueing
+        if stacked.graph_mask.device.type == "cpu":
+            # the whole refresh: forwards, statistics handling, host
+            # enqueueing
+            with trace.span("refresh"):
+                refresh_bn_stats(step, model, _pool_batches(stacked, decode))
+            trace.count("refresh.batches", pool_size(stacked))
+            return
+        if not base:  # the capture reads them
+            base.update(bn_stats(model))
+        graph = graphs.find(stacked)
+        # the base copies, every replay (span `refresh.forward`) and the
+        # average's loads
         with trace.span("refresh"):
-            refresh_bn_stats(step, model, _pool_batches(stacked, decode))
+            for k, v in _stat_buffers(model).items():
+                base[k].copy_(v)
+            sums = graph.run(stacked)
+            n = pool_size(stacked)
+            load_bn_stats(model, {k: v / n for k, v in zip(base, sums)})
 
     return refresh
 
@@ -361,6 +402,26 @@ def make_pool_refresh_step(model: torch.nn.Module, decode=None):
 # ---------------------------------------------------------------------------
 
 _BN_MODES = ("running", "batch")
+
+
+def _eval_statistics(bn_mode: str):
+    """The context an eval forward runs in: `running_statistics` or
+    `_batch_statistics`."""
+    if bn_mode not in _BN_MODES:
+        raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
+    return _batch_statistics if bn_mode == "batch" else running_statistics
+
+
+def _abs_err_sums(out: torch.Tensor, batch: GraphBatch, node_level: bool,
+                  segment_level: bool) -> tuple:
+    """(sum |out - y|, count) over the real rows `eval_step` names."""
+    if segment_level:
+        mask, y = batch.segment_mask, batch.extras["y_seg"]
+    else:
+        mask = batch.node_mask if node_level else batch.graph_mask
+        y = batch.y
+    err = (out - y).abs() * mask[:, None]
+    return err.sum(), mask.sum() * out.shape[-1]
 
 
 @torch.no_grad()
@@ -374,19 +435,10 @@ def eval_step(model: torch.nn.Module, batch: GraphBatch,
     normalizes with the running statistics; "batch" with the eval batch's
     own, leaving the running statistics untouched. The model is in
     `eval()` either way."""
-    if bn_mode not in _BN_MODES:
-        raise ValueError(f"bn_mode {bn_mode!r}: one of {_BN_MODES}")
-    with (_batch_statistics(model) if bn_mode == "batch"
-          else running_statistics(model)), sorted_views(), \
+    with _eval_statistics(bn_mode)(model), sorted_views(), \
             trace.span("eval.forward"):  # the model call alone
         out = model(batch)
-    if segment_level:
-        mask, y = batch.segment_mask, batch.extras["y_seg"]
-    else:
-        mask = batch.node_mask if node_level else batch.graph_mask
-        y = batch.y
-    err = (out - y).abs() * mask[:, None]
-    return err.sum(), mask.sum() * out.shape[-1]
+    return _abs_err_sums(out, batch, node_level, segment_level)
 
 
 def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
@@ -394,18 +446,43 @@ def make_pool_eval_step(model: torch.nn.Module, node_level: bool = True,
                         segment_level: bool = False, decode=None):
     """`eval_pool(stacked) -> (sum |err|, count)` accumulated on the device
     over every batch of a stacked pool (each through `decode` when
-    given); eager and forward-only."""
+    given), forward-only, as `eval_step` sums each batch.
 
+    On the CPU it runs eagerly. On a CUDA device one batch's eval (decode,
+    forward, error sums added into static sums, in batch order as the
+    eager chain adds them) is a `_GraphedForwardPool` replayed per batch;
+    with `bn_mode="batch"` the running statistics the replays move are
+    put back after them."""
+    modes = _eval_statistics(bn_mode)
+
+    def body(batch: GraphBatch) -> list:
+        if decode is not None:
+            batch = decode(batch)
+        with sorted_views():
+            out = model(batch)
+        return list(_abs_err_sums(out, batch, node_level, segment_level))
+
+    graphs = _GraphedForwardPool(model, body, "eval", modes)
+
+    @torch.no_grad()
     def eval_pool(stacked: GraphBatch):
-        total = count = None
-        # every batch's forward and error sums, enqueued; no wait
-        with trace.span("eval"):
-            for b in _pool_batches(stacked, decode):
-                s, c = eval_step(model, b, node_level, bn_mode,
-                                 segment_level)
-                total = s if total is None else total + s
-                count = c if count is None else count + c
-        return total, count
+        if stacked.graph_mask.device.type == "cpu":
+            total = count = None
+            # every batch's forward and error sums, enqueued; no wait
+            with trace.span("eval"):
+                for b in _pool_batches(stacked, decode):
+                    s, c = eval_step(model, b, node_level, bn_mode,
+                                     segment_level)
+                    total = s if total is None else total + s
+                    count = c if count is None else count + c
+            trace.count("eval.batches", pool_size(stacked))
+            return total, count
+        graph = graphs.find(stacked)
+        # every replay (span `eval.forward`); no wait
+        with trace.span("eval"), modes(model):
+            total, count = graph.run(stacked)
+            # the next call refills the sums
+            return total.clone(), count.clone()
 
     return eval_pool
 
@@ -581,26 +658,13 @@ class _EagerPoolStep(_PoolBuffers):
 class _GraphedPoolStep(_PoolBuffers):
     """One train step captured into a CUDA graph, replayed per batch."""
 
-    WARMUP_STEPS = 3
-
     def __init__(self, model, opt, step_fn, pool_like: GraphBatch):
         if not all(g.get("capturable") for g in opt.param_groups):
             raise ValueError("the graphed pool step needs a capturable "
                              "optimizer: adam_with_plateau(..., "
                              "capturable=True)")
         super().__init__(pool_like)
-        # warm up on a side stream (allocator, cuBLAS workspaces, the
-        # optimizer's state, the kernels' scratch such as K1's counters),
-        # then put the model and optimizer back in place so the warm-up
-        # leaves the training trajectory as it was
-        snapshot = _snapshot(model, opt)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP_STEPS):
-                step_fn(self.static)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        _restore_in_place(model, opt, snapshot)
+        _warm_up(model, opt, lambda: step_fn(self.static), self.device)
         # grads set to None: the captured backward allocates them from the
         # graph's pool, at the same addresses in every replay
         opt.zero_grad(set_to_none=True)
@@ -626,12 +690,106 @@ class _GraphedPoolStep(_PoolBuffers):
             return losses
 
 
-def _snapshot(model, opt) -> dict:
+class _GraphedForwardPool:
+    """A forward-only body over one batch, captured into a CUDA graph and
+    replayed once per batch of a stacked pool: the pool eval and the BN
+    refresh on a CUDA device. `body(batch) -> tensors` runs under
+    `torch.no_grad()` and `modes(model)`; each replay adds its tensors
+    into static sums, in batch order.
+
+    One graph per batch layout (each entry's shapes and dtypes, the block
+    sizes) and per address of the model's parameters and buffers: a stack
+    of another layout gets a graph of its own, a model whose tensors were
+    rebound rather than written in place a fresh capture in place of the
+    stale one, so no graph replays over freed memory. A capture failure
+    raises. `name` names the spans and counters: `<name>.forward` around
+    each replay, `<name>.capture` around a capture; `<name>.batches`,
+    `.replays` and `.captures`."""
+
+    def __init__(self, model, body, name: str, modes):
+        self.model, self.body, self.name, self.modes = model, body, name, modes
+        self.graphs: dict = {}  # entry layout -> _ForwardGraph
+
+    def find(self, stack: GraphBatch) -> "_ForwardGraph":
+        """The graph of `stack`'s layout and the model's addresses,
+        captured here if there is none."""
+        key = (tuple((k, tuple(v.shape[1:]), v.dtype, v.device)
+                     for k, v in stack.tensors().items()), _layout(stack))
+        addrs = tuple(t.data_ptr() for t in _model_tensors(self.model))
+        graph = self.graphs.get(key)
+        if graph is None or graph.addrs != addrs:
+            self.graphs[key] = graph = None  # free a stale graph's pool
+            with trace.span(self.name + ".capture"):
+                graph = _ForwardGraph(self.model, self.body, self.modes,
+                                      stack, self.name)
+            graph.addrs = addrs
+            self.graphs[key] = graph
+            trace.count(self.name + ".captures")
+        return graph
+
+
+class _ForwardGraph(_PoolBuffers):
+    """One capture of a `_GraphedForwardPool`'s body over static batch
+    buffers shaped like one entry of a stack."""
+
+    def __init__(self, model, body, modes, stack: GraphBatch, name: str):
+        super().__init__(stack)
+        self.name = name
+        with torch.no_grad(), modes(model):
+            # a batch-statistics forward moves the running statistics:
+            # the warm-up puts them back
+            out = _warm_up(model, None, lambda: body(self.static),
+                           self.device)
+            self.sums = [torch.zeros_like(t) for t in out]
+            self.graph = torch.cuda.CUDAGraph()
+            for gen in model_generators(model):
+                self.graph.register_generator_state(gen)
+            with torch.cuda.graph(self.graph):
+                for acc, t in zip(self.sums, body(self.static)):
+                    acc.add_(t)
+
+    def run(self, stack: GraphBatch) -> list:
+        """Zero the sums, then per batch of `stack` its copies into the
+        buffers and one replay; returns the sums (static tensors)."""
+        if self.sums:  # a model without BatchNorm refreshes no statistic
+            torch._foreach_zero_(self.sums)
+        n = pool_size(stack)
+        for j in range(n):
+            self.load(stack, j)
+            with trace.span(self.name + ".forward"):  # the replay's launch
+                self.graph.replay()
+        trace.count(self.name + ".batches", n)
+        trace.count(self.name + ".replays", n)
+        return self.sums
+
+
+WARMUP_STEPS = 3
+
+
+def _warm_up(model, opt, fn, device):
+    """`fn()` `WARMUP_STEPS` times on a side stream ahead of a capture
+    (allocator, cuBLAS workspaces, an optimizer's state, the kernels'
+    scratch such as K1's counters); then every parameter, buffer,
+    optimizer state (`opt` may be None) and generator state is put back
+    in place, so the warm-up leaves the model as it was. Returns the last
+    call's result."""
+    snapshot = _snapshot(model, opt)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_STEPS):
+            out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    _restore_in_place(model, opt, snapshot)
+    return out
+
+
+def _snapshot(model, opt=None) -> dict:
     return dict(
         tensors=[t.detach().clone() for t in _model_tensors(model)],
         opt_state={p: {k: v.clone() for k, v in s.items()
                        if isinstance(v, torch.Tensor)}
-                   for p, s in opt.state.items()},
+                   for p, s in (opt.state.items() if opt is not None else ())},
         rng=[g.get_state() for g in model_generators(model)],
     )
 
@@ -644,7 +802,7 @@ def _model_tensors(model):
 def _restore_in_place(model, opt, snapshot) -> None:
     for t, saved in zip(_model_tensors(model), snapshot["tensors"]):
         t.copy_(saved)
-    for p, state in opt.state.items():
+    for p, state in (opt.state.items() if opt is not None else ()):
         saved = snapshot["opt_state"].get(p)
         for k, v in state.items():
             if not isinstance(v, torch.Tensor):

@@ -72,17 +72,34 @@ def test_ledger_counts_nodes_times_replays():
     assert ledger.replays == [0, 0] and ledger.launches("{KERNEL") == 0
 
 
+def test_ledger_counts_train_and_forward_graphs_apart():
+    """A forward-only eval or refresh graph's launches count apart from
+    the train steps' graphs."""
+    ledger = chip_smoke._GraphLedger()
+    ledger.dots = [DOT, DOT, DOT.replace("zemb_rows_kernel", "other")]
+    ledger.replays = [2, 7, 5]
+    ledger.forward = [False, True, True]
+    assert ledger.launches("zemb_rows_kernel") == 9
+    assert ledger.launches("zemb_rows_kernel", forward=False) == 2
+    assert ledger.launches("zemb_rows_kernel", forward=True) == 7
+    assert ledger.launches("{KERNEL", forward=True) == 3 * 12
+
+
 def test_ledger_watch_puts_cuda_graph_back():
-    """The wrapped capture end and replay are torch's own again after
-    `watch()`, also when the watched code raises."""
+    """The wrapped capture end and replay, and the forward graph's
+    constructor, are the originals again after `watch()`, also when the
+    watched code raises."""
+    from escgnn_tpu_torch.train import loop
+
     cls = torch.cuda.CUDAGraph
-    before = (cls.capture_end, cls.replay)
+    before = (cls.capture_end, cls.replay, loop._ForwardGraph.__init__)
     ledger = chip_smoke._GraphLedger()
     with pytest.raises(RuntimeError, match="inside"):
         with ledger.watch():
-            assert (cls.capture_end, cls.replay) != before
+            assert (cls.capture_end, cls.replay,
+                    loop._ForwardGraph.__init__) != before
             raise RuntimeError("inside")
-    assert (cls.capture_end, cls.replay) == before
+    assert (cls.capture_end, cls.replay, loop._ForwardGraph.__init__) == before
 
 
 def _grads():

@@ -221,4 +221,8 @@ def test_refresh_and_eval_count_each_forward(model_and_pool):
     assert {n: spans[n]["calls"] for n in spans} == {
         "refresh": 1, "refresh.forward": b, "eval": 2, "eval.forward": 2 * b}
     assert spans["refresh"]["seconds"] > spans["refresh.forward"]["seconds"]
-    assert _counters() == {}
+    # the CPU path is eager: every batch counted, none replayed or captured
+    assert _counters() == {"refresh.batches": b, "eval.batches": 2 * b}
+    for name in ("refresh", "eval"):
+        assert trace.counter(name + ".replays") == 0
+        assert trace.counter(name + ".captures") == 0
