@@ -107,6 +107,9 @@ def _upload(host: GraphBatch, device) -> GraphBatch:
     span (set-up only: the wait must stay off every step path)."""
     device = resolve_device(device)
     trace.count("pools.bytes", _nbytes(host))
+    grid = (host.extras or {}).get("attn_bias")
+    if grid is not None:  # GPS's stacked SPD grids, (..., G, M, M)
+        trace.count("pools.attn_bias_bytes", grid.nbytes)
     with trace.span("pools.upload"):
         out = host.to(device)
         if device.type == "cuda":

@@ -71,7 +71,7 @@ from escgnn_tpu_torch.featurize.posenc import (
     attach_lap_pe,
     attach_rwse,
 )
-from escgnn_tpu_torch.featurize.spd import attach_attn_bias
+from escgnn_tpu_torch.featurize.spd import attach_attn_bias_many
 from escgnn_tpu_torch.featurize.transform import featurize_many
 from escgnn_tpu_torch.models.gps import DenseGrid, GPSConfig, GPSModel
 from escgnn_tpu_torch.train.checkpoint import (
@@ -268,7 +268,7 @@ def build_dataset(cfg, seed: int):
             out = (featurize_many(graphs, ecfg, num_workers=0)
                    if d.esc.enable else list(graphs))
             if d.attn_bias:
-                out = [attach_attn_bias(g) for g in out]
+                out = attach_attn_bias_many(out)
             if lap:
                 out = [attach_lap_pe(g, k=cfg.posenc.lap_pe_k) for g in out]
             if m.use_rwse:

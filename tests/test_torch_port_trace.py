@@ -17,6 +17,7 @@ from escgnn_tpu_torch.data.prefetch import (
     stacked_batch_pools,
 )
 from escgnn_tpu_torch.featurize import EscConfig, featurize_many
+from escgnn_tpu_torch.featurize.spd import attach_attn_bias_many
 from escgnn_tpu_torch.models.nested_gin_eff import (
     NestedGINEff,
     NestedGINEffConfig,
@@ -29,6 +30,7 @@ from escgnn_tpu_torch.train.loop import (
     make_pool_train_step,
 )
 from escgnn_tpu_torch.utils import trace
+from perfbench import cell
 
 CFG = dict(hidden=8, num_layers=2, act="elu", graph_pred=True, pool="add",
            use_x_embedding_jk=False, head_order="dropout_act",
@@ -226,3 +228,62 @@ def test_refresh_and_eval_count_each_forward(model_and_pool):
     for name in ("refresh", "eval"):
         assert trace.counter(name + ".replays") == 0
         assert trace.counter(name + ".captures") == 0
+
+
+def test_spd_is_one_span_counting_its_graphs():
+    gs = featurize_many(synthetic_zinc(5, seed=2), EscConfig(h=2))
+    trace.reset()
+    out = attach_attn_bias_many(gs)
+    assert len(out) == 5 and all(a is b for a, b in zip(out, gs))
+    assert all(g.extras["attn_bias"].shape == (g.num_nodes,) * 2
+               for g in gs)
+    assert _counters() == {"featurize.spd_graphs": 5}
+    assert {n: s["calls"] for n, s in _spans().items()} == {
+        "featurize.spd": 1}
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_stacked_spd_grids_count_their_bytes(k):
+    """Every stack that carries GPS's SPD grids (the train pools and a
+    fixed split) counts the grids' bytes; `pools.bytes` holds them too."""
+    gs = attach_attn_bias_many(
+        featurize_many(synthetic_zinc(12, seed=3), EscConfig(h=2)))
+    spec = BatchSpec.uniform(gs, 4, enc_layout="dedup")
+    trace.reset()
+    pools, _, _ = stacked_batch_pools(gs, spec, k=k, seed=0, device="cpu")
+    stack = stack_split(gs, spec, device="cpu")
+    grids = [p.extras["attn_bias"] for p in pools + [stack]]
+    M = spec.max_nodes_per_graph
+    assert all(g.shape == (3, 4, M, M) and g.dtype == torch.int16
+               for g in grids)
+    assert _counters() == {
+        "pools.bytes": sum(_nbytes(p) for p in pools + [stack]),
+        "pools.attn_bias_bytes": sum(g.nbytes for g in grids)}
+
+
+# every per-layer metric the GPS cell reports: the ZINC train cell's step,
+# kernel, device and set-up readers, and the SPD featurizer's
+GPS_READERS = sorted(m["name"] for m in cell.resolve("gps_zinc.train")[
+    "metrics"] if m["kind"] == "per_layer")
+
+
+def _reader(name):
+    return cell.reader(f"{cell.HERE}/metrics/{name}.py")
+
+
+@pytest.mark.parametrize("name", GPS_READERS)
+def test_gps_readers_read_none_without_their_source(name):
+    """A run whose system has no such span, counter, window or trace (the
+    parent of the cell for `spd_graphs_per_s`, or a CPU run) leaves the
+    metric out."""
+    r = dict(spans={}, counters={}, trace={}, peaks=dict(
+        f32_flops=67e12, hbm_bytes_per_s=3.35e12))
+    assert _reader(name)(r) is None
+
+
+def test_spd_reader_reads_the_span_and_counter():
+    attach_attn_bias_many(featurize_many(synthetic_zinc(4, seed=5),
+                                         EscConfig(h=2)))
+    s = _spans()["featurize.spd"]
+    got = _reader("spd_graphs_per_s")({})
+    assert got == pytest.approx(4 / s["seconds"])
